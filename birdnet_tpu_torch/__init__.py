@@ -2,9 +2,11 @@
 
 BirdNET v2.4 per-call classification on an NVIDIA H100: ONNX file →
 ``import_onnx`` (decode, Conv+BN folding, fused-node bundling) →
-``Classifier.builder()...build()`` → ``predict`` / ``predict_batch``, with
-the audio frontend's two Pallas kernels rewritten by hand in CUDA
-(``csrc/frontend.cu``, built by nvcc at first use).
+``Classifier.builder()...build()`` → ``predict`` / ``predict_batch``, in
+float or after int8 post-training quantization (``.int8()``), with the
+audio frontend's two Pallas kernels and the fused int8 1x1 conv +
+requantize kernel rewritten by hand in CUDA (``csrc/frontend.cu``,
+``csrc/qconv.cu``, built by nvcc at first use).
 
 The package imports torch and numpy, never jax, and never the JAX package
 ``birdnet_tpu`` (importing it would import jax). So these modules are
@@ -17,6 +19,8 @@ drifting by ``tests/test_torch_codec.py``: ``errors``, ``types``,
 ``onnx/__init__``. Two copies carry one change each: ``onnx/proto`` makes
 ``ml_dtypes`` optional, and the docstring of ``models/_builder`` names the
 upstream blob list by file name rather than by an absolute path.
+``compiler/quantize`` is a copy whose calibration (``_collect_absmax``)
+runs on the port's interpreter on an explicit device.
 
 Every device is explicit: the classifier runs on ``cuda:0`` unless the
 builder asks for another device, and a CUDA request without CUDA raises

@@ -11,9 +11,11 @@ Differences from the JAX package:
   (``.with_device("cpu")``, ``.with_device("cuda:1")``). Asking for CUDA
   where there is none raises :class:`~birdnet_tpu_torch.errors.RuntimeInitError`.
 - Build-time validation is one forward pass at batch 1 on that device.
-- Mesh sharding, int8, ``.btck`` checkpoints, streaming analysis and
-  batch contexts are not ported yet; their methods raise
-  ``NotImplementedError`` naming the ROADMAP item.
+- int8 calibration runs on that device (the JAX package pins it to the
+  host CPU).
+- Mesh sharding, ``.btck`` checkpoints, streaming analysis and batch
+  contexts are not ported yet; their methods raise ``NotImplementedError``
+  naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -63,6 +65,9 @@ class ClassifierBuilder:
         self._precision: Optional[str] = None
         self._warmup_batches: Sequence[int] = ()
         self._species_list: Optional[List[str]] = None
+        self._model_type: Optional[ModelType] = None
+        self._int8 = False
+        self._int8_calibration = None
 
     # -- required inputs --------------------------------------------------
 
@@ -87,6 +92,11 @@ class ClassifierBuilder:
 
     def min_confidence(self, c: float) -> "ClassifierBuilder":
         self._min_confidence = float(c)
+        return self
+
+    def model_type(self, mt: ModelType) -> "ClassifierBuilder":
+        """Override auto-detection (validated against actual shapes)."""
+        self._model_type = mt
         return self
 
     def precision(self, p: str) -> "ClassifierBuilder":
@@ -124,7 +134,20 @@ class ClassifierBuilder:
         _not_ported("multi-device sharding (with_mesh)", "A10")
 
     def int8(self, calibration_segments=None) -> "ClassifierBuilder":
-        _not_ported("int8 quantization", "A8")
+        """Post-training int8 quantization (compiler/quantize.py): symmetric
+        int8 weights and activations, the 1x1 convs on the B3 kernel.
+
+        ``calibration_segments``: real audio for activation calibration —
+        an iterable of [B, sample_count] float32 batches, a 2-D
+        [N, sample_count] stack (split into batches of 4), or a raw 1-D
+        recording (float32 or int16 PCM) that gets chunked into
+        evenly-spaced segments. ``None`` falls back to synthetic
+        noise/sweep audio, which keeps scales sane but calibrates less
+        accurately than real recordings.
+        """
+        self._int8 = True
+        self._int8_calibration = calibration_segments
+        return self
 
     # -- build -------------------------------------------------------------
 
@@ -142,9 +165,11 @@ class ClassifierBuilder:
 
         imported = import_onnx(self._model_path)
         input_shape, output_shapes = imported.detection_shapes()
-        config = detect_model_type(input_shape, output_shapes)
+        config = detect_model_type(input_shape, output_shapes, self._model_type)
         device = resolve_device(self._requested_device)
         precision = self._precision or default_precision(device)
+        if self._int8:
+            imported = self._quantize(imported, config, device)
 
         # Validation forward (reference analog: ORT validates the graph at
         # session creation — commit_from_file, classifier.rs:348-350):
@@ -195,6 +220,33 @@ class ClassifierBuilder:
             min_confidence=self._min_confidence,
             species_mask=species_mask,
         )
+
+    def _quantize(self, imported, config: ModelConfig, device):
+        """The int8 model, calibrated on ``device``."""
+        from .compiler.quantize import (
+            calibration_from_samples,
+            quantize_model,
+            synthetic_calibration_segments,
+        )
+
+        calibration = self._int8_calibration
+        if calibration is None:
+            calibration = synthetic_calibration_segments(config.sample_count)
+        elif isinstance(calibration, np.ndarray):
+            if calibration.ndim == 1:
+                # Raw recording: chunk into evenly-spaced segments.
+                calibration = calibration_from_samples(
+                    calibration, config.sample_count
+                )
+            elif calibration.ndim == 2:
+                # [N, sample_count] segment stack: split into batches (a
+                # bare 2-D array would otherwise iterate into 1-D rows, each
+                # misread as a whole model input).
+                calibration = [
+                    calibration[i:i + 4]
+                    for i in range(0, calibration.shape[0], 4)
+                ]
+        return quantize_model(imported, calibration, device=device)
 
 
 class Classifier:
@@ -260,6 +312,17 @@ class Classifier:
         """Boolean [num_species] candidate mask from
         :meth:`ClassifierBuilder.species_list`, or None when unrestricted."""
         return self._species_mask
+
+    def allowed_species(self) -> Optional[List[str]]:
+        """Labels retained by the build-time species list (label order),
+        or None when unrestricted."""
+        if self._species_mask is None:
+            return None
+        return [
+            label
+            for label, keep in zip(self._labels, self._species_mask)
+            if keep
+        ]
 
     # -- prediction ---------------------------------------------------------
 

@@ -51,6 +51,9 @@ class ImportedModel:
     def num_outputs(self) -> int:
         return len(self.output_names)
 
+    def param_bytes(self) -> int:
+        return sum(int(p.nbytes) for p in self.params.values())
+
     def detection_shapes(self) -> Tuple[List[int], List[List[int]]]:
         """Input/output shapes in the form ``detect_model_type`` expects
         (dynamic dims reported as 1)."""
@@ -308,6 +311,19 @@ def params_to_torch(params: Dict[str, np.ndarray],
     }
 
 
+def consts_to_device(consts: Dict[str, np.ndarray],
+                     device) -> Dict[str, object]:
+    """The constants as the interpreter's environment holds them. Float
+    constants with at least one axis (small biases) are operands, never
+    shapes or axes: they move to ``device`` once, not per call. The rest
+    stay host values."""
+    return {
+        name: torch.from_numpy(np.array(arr)).to(device)
+        if np.issubdtype(arr.dtype, np.floating) and arr.ndim else arr
+        for name, arr in consts.items()
+    }
+
+
 def make_forward(model: ImportedModel, precision: str = "fp32",
                  device="cpu"):
     """Build the eager forward ``fn(params, *inputs) -> tuple(outputs)``.
@@ -331,13 +347,7 @@ def make_forward(model: ImportedModel, precision: str = "fp32",
     device = torch.device(device)
     graph, opset = model.graph, model.opset
     input_names, output_names = model.input_names, model.output_names
-    # Float constants with at least one axis (small biases) are operands,
-    # never shapes or axes: they move to the device once, not per call.
-    consts = {
-        name: torch.from_numpy(np.array(arr)).to(device)
-        if np.issubdtype(arr.dtype, np.floating) and arr.ndim else arr
-        for name, arr in model.consts.items()
-    }
+    consts = consts_to_device(model.consts, device)
 
     def forward(params: Dict[str, torch.Tensor], *inputs):
         if len(inputs) != len(input_names):

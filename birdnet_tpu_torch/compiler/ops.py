@@ -5,7 +5,12 @@ v2.4 graph holds after import: the fused frontend, MBConv and stage-prefix
 nodes, ``Conv`` in its four shapes, ``BatchNormalization``, ``Add``,
 ``Mul``, ``Log``, ``Sigmoid``, ``GlobalAveragePool``, ``Flatten``,
 ``Unsqueeze``, ``Transpose``, ``Gemm``, ``MatMul``, ``ReduceSumSquare``,
-``MelWeightMatrix`` and ``STFT``. Every other op is a later port.
+``MelWeightMatrix`` and ``STFT``; and the int8 set that post-training
+quantization (compiler/quantize.py) produces: ``QuantizeLinear``,
+``DequantizeLinear``, ``QLinearConv`` (symmetric int8 1x1 convs run the B3
+kernel), ``QLinearMatMul``, ``_QLinearGemm``, ``ConvInteger``,
+``MatMulInteger`` and ``DynamicQuantizeLinear``. Every other op is a later
+port.
 
 Values in the interpreter's environment are torch tensors (activations and
 float params) or numpy arrays (small constants, shapes, axes). A lowering
@@ -33,6 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from ..onnx.proto import DataType as _DT
+from ..ops.cuda.qconv import EPILOGUE_ACTS as _EPILOGUE_ACTS
+from ..ops.cuda.qconv import qconv1x1_requant
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -310,13 +317,9 @@ def _polyphase_conv1d(ctx, x, w, b, stride, pads, orig):
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
-@op("Conv")
-def _conv(ctx, x, w, b=None):
-    """Conv in the shapes the BirdNET graphs use: the large-stride C_in=1
-    Conv1d filterbank (polyphase matmul), the 3x3 stride-2 stem, 1x1 and
-    depthwise convolutions (cuDNN through torch.nn.functional)."""
-    x = _tensor(ctx, x)
-    w = _tensor(ctx, w, x.device)
+def _conv_geometry(ctx, x, w):
+    """Shared Conv/QLinearConv/ConvInteger geometry from the ONNX conv
+    attributes: ``(strides, dilations, group, pads)``."""
     nd = x.ndim - 2
     if nd not in _CONV:
         raise NotImplementedError(f"Conv over {nd} spatial dims")
@@ -335,6 +338,29 @@ def _conv(ctx, x, w, b=None):
             f"and output channels {w.shape[0]}"
         )
     pads = _resolve_pads(ctx, x.shape[2:], kernel, strides, dilations)
+    return strides, dilations, group, pads
+
+
+def _conv_nd(x, w, strides, dilations, group, pads):
+    """torch convolution with ONNX (lo, hi) pads per spatial dim."""
+    if all(lo == hi for lo, hi in pads):
+        padding = [lo for lo, _ in pads]
+    else:
+        # torch pads symmetrically; asymmetric ONNX pads go in first.
+        x = F.pad(x, [p for lo, hi in reversed(pads) for p in (lo, hi)])
+        padding = 0
+    return _CONV[x.ndim - 2](x, w, None, strides, padding, dilations, group)
+
+
+@op("Conv")
+def _conv(ctx, x, w, b=None):
+    """Conv in the shapes the BirdNET graphs use: the large-stride C_in=1
+    Conv1d filterbank (polyphase matmul), the 3x3 stride-2 stem, 1x1 and
+    depthwise convolutions (cuDNN through torch.nn.functional)."""
+    x = _tensor(ctx, x)
+    w = _tensor(ctx, w, x.device)
+    nd = x.ndim - 2
+    strides, dilations, group, pads = _conv_geometry(ctx, x, w)
     orig = x.dtype
     if (
         nd == 1
@@ -347,13 +373,7 @@ def _conv(ctx, x, w, b=None):
     ):
         return _polyphase_conv1d(ctx, x, w, b, strides[0], pads[0], orig)
     x2, w2 = _mxu_operands(ctx, x, w)
-    if all(lo == hi for lo, hi in pads):
-        padding = [lo for lo, _ in pads]
-    else:
-        # torch pads symmetrically; asymmetric ONNX pads go in first.
-        x2 = F.pad(x2, [p for lo, hi in reversed(pads) for p in (lo, hi)])
-        padding = 0
-    y = _CONV[nd](x2, w2, None, strides, padding, dilations, group)
+    y = _conv_nd(x2, w2, strides, dilations, group, pads)
     y = _out_cast(ctx, y, orig)
     if b is not None:
         bias = _tensor(ctx, b, y.device).reshape((1, -1) + (1,) * nd)
@@ -519,6 +539,329 @@ def _dft_basis(flen: int, bins: int, device: torch.device) -> torch.Tensor:
     ang = (-2.0 * np.pi / flen) * np.outer(np.arange(flen), np.arange(bins))
     basis = np.concatenate([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
     return torch.from_numpy(basis).to(device)
+
+
+# ---------------------------------------------------------------------------
+# quantize / dequantize and integer compute: the int8 path
+#
+# Same semantics as birdnet_tpu/compiler/ops.py:1895-2267. torch has no int8
+# convolution on CUDA, so the exact int32 accumulators of the integer convs
+# and matmuls are computed in float64, exact while every partial sum stays
+# below 2^53 (C_in/group * kh * kw * 255^2 terms), then cast to int32.
+# Symmetric int8 1x1 convs take the B3 kernel (ops/cuda/qconv.py), which is
+# bit-identical to the unfused lowering.
+#
+# Scales, zero points and biases are host constants (numpy). Each reaches
+# the device once (``_on_device``); a host scalar never divides a CUDA
+# tensor, because CUDA's true division turns a host-scalar divisor into a
+# multiply by its float32 reciprocal, which flips round-half-even ties.
+# ---------------------------------------------------------------------------
+
+
+def _is_host(x) -> bool:
+    """True for a host value (numpy or Python), the port's counterpart of
+    the JAX package's compile-time static values."""
+    return not isinstance(x, torch.Tensor)
+
+
+@functools.lru_cache(maxsize=4096)
+def _device_array(raw: bytes, dtype: str, shape, device) -> torch.Tensor:
+    arr = np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def _on_device(x, device) -> torch.Tensor:
+    """``x`` as a tensor on ``device``. Host arrays are uploaded once per
+    value and shared: callers never write to the result."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    arr = np.ascontiguousarray(x)
+    return _device_array(arr.tobytes(), arr.dtype.str, arr.shape,
+                         torch.device(device))
+
+
+def _bcast_channel(v: torch.Tensor, ndim: int, axis: int) -> torch.Tensor:
+    """Reshape a 1-D per-channel vector for broadcasting along ``axis``."""
+    if v.ndim == 1 and v.shape[0] > 1:
+        shape = [1] * ndim
+        shape[axis] = -1
+        return v.reshape(shape)
+    return v
+
+
+def _qdq_scale_zp(ctx, x, scale, zero_point):
+    """A QDQ scale/zero point on ``x``'s device, shaped to broadcast against
+    ``x``: per-tensor (scalar), per-axis (1-D along ``axis``) or blocked
+    (opset 21 ``block_size``: each block's scale repeats ``block_size`` times
+    along ``axis``, tail block clamped)."""
+    axis = int(ctx.attr("axis", 1))
+    if axis < 0:
+        axis += x.ndim
+    scale = _on_device(scale, x.device)
+    zp = None if zero_point is None else _on_device(zero_point, x.device)
+    bs = int(ctx.attr("block_size", 0))
+    if bs > 0:
+        if scale.ndim != x.ndim:
+            raise ValueError(
+                f"{ctx.op_type}: blocked quantization needs a scale of "
+                f"x's rank ({x.ndim}); got rank {scale.ndim}"
+            )
+        blk = torch.clamp(
+            torch.arange(x.shape[axis], device=x.device) // bs,
+            max=scale.shape[axis] - 1,
+        )
+        scale = scale.index_select(axis, blk)
+        if zp is not None:
+            zp = zp.index_select(axis, blk)
+    elif scale.ndim == 1 and scale.shape[0] > 1:
+        scale = _bcast_channel(scale, x.ndim, axis)
+        if zp is not None:
+            zp = _bcast_channel(zp, x.ndim, axis)
+    return scale, zp
+
+
+_INT_TARGETS = {
+    _DT.UINT8: torch.uint8,
+    _DT.INT8: torch.int8,
+    _DT.INT16: torch.int16,
+    _DT.INT32: torch.int32,
+}
+
+
+@op("DequantizeLinear")
+def _dequantize_linear(ctx, x, scale, zero_point=None):
+    """(x - zero_point) * scale: per-tensor, per-axis or blocked."""
+    x = _tensor(ctx, x)
+    scale, zp = _qdq_scale_zp(ctx, x, scale, zero_point)
+    xf = x.float()
+    if zp is not None:
+        xf = xf - zp.float()
+    return [xf * scale.float()]
+
+
+@op("QuantizeLinear")
+def _quantize_linear(ctx, x, scale, zero_point=None):
+    """Saturating round-half-even(x / scale) + zero_point: per-tensor,
+    per-axis or blocked. The target type comes from the zero point, the
+    ``output_dtype`` attribute (opset 21) or defaults to uint8; float8
+    targets are not ported (ROADMAP A8)."""
+    x = _tensor(ctx, x).float()
+    scale, zp = _qdq_scale_zp(ctx, x, scale, zero_point)
+    if zp is not None:
+        out_dtype = zp.dtype
+    elif ctx.attr("output_dtype") is not None:
+        out_dtype = _INT_TARGETS.get(int(ctx.attr("output_dtype")))
+        if out_dtype is None:
+            raise NotImplementedError(
+                f"QuantizeLinear to ONNX type {int(ctx.attr('output_dtype'))} "
+                f"is not ported to birdnet_tpu_torch (ROADMAP A8)"
+            )
+    else:
+        out_dtype = torch.uint8
+    q = torch.round(x / scale.float())
+    if zp is not None:
+        q = q + zp.float()
+    info = torch.iinfo(out_dtype)
+    return [q.clamp(info.min, info.max).to(out_dtype)]
+
+
+def _quant_pair(q: torch.Tensor, zp):
+    """Normalize a quantized tensor to int8: uint8 is shifted down by 128,
+    with the zero point shifted to match. Returns ``(q_s8, zp_i32,
+    zp_is_statically_zero)``; a host zero point stays on the host."""
+    if q.dtype == torch.uint8:
+        shift = 128
+        q = (q.to(torch.int32) - 128).to(torch.int8)
+    elif q.dtype == torch.int8:
+        shift = 0
+    else:
+        raise NotImplementedError(
+            f"quantized compute expects int8/uint8 operands, got {q.dtype}"
+        )
+    base = np.int32(0) if zp is None else zp
+    if _is_host(base):
+        arr = np.asarray(base).astype(np.int64) - shift
+        return q, arr.astype(np.int32), bool(np.all(arr == 0))
+    return q, base.to(torch.int32) - shift, False
+
+
+def _int_conv_acc(ctx, x, w, x_zp, w_zp):
+    """Exact int32 accumulator of conv(x - x_zp, w - w_zp), in float64.
+    Padded taps contribute (0 - 0), the dequantized zero."""
+    x_s8, xzp, xzp_zero = _quant_pair(x, x_zp)
+    w_s8, wzp, wzp_zero = _quant_pair(w, w_zp)
+    strides, dilations, group, pads = _conv_geometry(ctx, x_s8, w_s8)
+    x64, w64 = x_s8.double(), w_s8.double()
+    if not xzp_zero:
+        x64 = x64 - _bcast_channel(_on_device(xzp, x.device).double(), x64.ndim, 1)
+    if not wzp_zero:
+        w64 = w64 - _bcast_channel(_on_device(wzp, x.device).double(), w64.ndim, 0)
+    return _conv_nd(x64, w64, strides, dilations, group, pads).to(torch.int32)
+
+
+def _int_matmul_acc(a, b, a_zp, b_zp):
+    """Exact int32 accumulator of matmul(a - a_zp, b - b_zp), in float64
+    (a 1-D ``a_zp`` is per row of a, a 1-D ``b_zp`` per column of b)."""
+    a_s8, azp, azp_zero = _quant_pair(a, a_zp)
+    b_s8, bzp, bzp_zero = _quant_pair(b, b_zp)
+    a64, b64 = a_s8.double(), b_s8.double()
+    if not azp_zero:
+        azp = _on_device(azp, a.device).double()
+        if azp.ndim == 1 and azp.shape[0] > 1:
+            azp = azp.reshape(-1, 1)
+        a64 = a64 - azp
+    if not bzp_zero:
+        b64 = b64 - _on_device(bzp, a.device).double()
+    return torch.matmul(a64, b64).to(torch.int32)
+
+
+def _fused_act(ctx) -> str:
+    return ctx.attr("_fused_act", "relu" if int(ctx.attr("_fused_relu", 0)) else "")
+
+
+def _requantize(ctx, acc_f32, y_scale, y_zp, channel_ndim=None):
+    """float accumulator → quantized output (round-half-even, saturating;
+    the output type follows the zero point, uint8 without one). The
+    ``_fused_act`` attribute applies an activation first, in float32."""
+    v = _EPILOGUE_ACTS[_fused_act(ctx)](acc_f32)
+    ys = _on_device(y_scale, v.device).float()
+    if channel_ndim is not None:
+        ys = _bcast_channel(ys, channel_ndim, 1)
+    q = torch.round(v / ys)
+    if y_zp is not None:
+        zp = _on_device(y_zp, v.device)
+        out_dtype = zp.dtype
+        q = q + zp.float()
+    else:
+        out_dtype = torch.uint8
+    info = torch.iinfo(out_dtype)
+    return q.clamp(info.min, info.max).to(out_dtype)
+
+
+def _qconv1x1_kernel_eligible(ctx, x, w, x_zp, w_zp, y_s, y_zp) -> bool:
+    """B3's conditions (birdnet_tpu/compiler/ops.py:2120-2157): symmetric
+    int8 1x1 stride-1 ungrouped unpadded conv, every zero point a host int8
+    zero, a host scalar output scale. The TPU's lane-multiple rule on the
+    spatial size is dropped: B3 takes every N >= 1."""
+    if x.ndim != 4 or x.dtype != torch.int8 or w.dtype != torch.int8:
+        return False
+    if tuple(w.shape[2:]) != (1, 1):
+        return False
+    if not _is_host(y_s) or np.asarray(y_s).size != 1:
+        return False
+    if [int(s) for s in ctx.attr("strides", [1, 1])] != [1, 1]:
+        return False
+    if [int(d) for d in ctx.attr("dilations", [1, 1])] != [1, 1]:
+        return False
+    if int(ctx.attr("group", 1)) != 1:
+        return False
+    ap = ctx.attr("auto_pad", "NOTSET")
+    if isinstance(ap, bytes):
+        ap = ap.decode()
+    if ap in ("NOTSET", ""):
+        if [int(p) for p in ctx.attr("pads", [0, 0, 0, 0])] != [0, 0, 0, 0]:
+            return False
+    elif ap != "VALID":
+        return False
+    for zp in (x_zp, w_zp, y_zp):
+        if zp is None or not _is_host(zp):
+            return False  # y_zp None means uint8 output
+        arr = np.asarray(zp)
+        if arr.dtype != np.int8 or not np.all(arr == 0):
+            return False
+    return True
+
+
+@op("QLinearConv")
+def _qlinear_conv(ctx, x, x_s, x_zp, w, w_s, w_zp, y_s, y_zp=None, b=None):
+    """Quantized conv; the optional ``_fused_act`` attribute (relu, sigmoid,
+    silu, tanh, set by the QDQ fusion pass) runs in the float32 requantize
+    epilogue. Symmetric int8 1x1 convs run the B3 kernel
+    (ops/cuda/qconv.py::qconv1x1_requant)."""
+    x = _tensor(ctx, x)
+    w = _on_device(w, x.device)
+    nd = x.ndim - 2
+    if _qconv1x1_kernel_eligible(ctx, x, w, x_zp, w_zp, y_s, y_zp):
+        n_img, c_in, h, wdim = x.shape
+        c_out = w.shape[0]
+        scale = (
+            _on_device(x_s, x.device).float().reshape(-1)
+            * _on_device(w_s, x.device).float().reshape(-1)
+        ).expand(c_out).contiguous()
+        bias = None if b is None else _on_device(b, x.device).to(torch.int32)
+        y = qconv1x1_requant(
+            x.reshape(n_img, c_in, h * wdim).contiguous(),
+            w.reshape(c_out, c_in).contiguous(),
+            bias,
+            scale,
+            float(np.asarray(y_s).reshape(())),
+            act=_fused_act(ctx),
+        )
+        return [y.reshape(n_img, c_out, h, wdim)]
+    acc = _int_conv_acc(ctx, x, w, x_zp, w_zp)
+    if b is not None:
+        acc = acc + _on_device(b, x.device).to(torch.int32).reshape((1, -1) + (1,) * nd)
+    scale = _on_device(x_s, x.device).float() * _bcast_channel(
+        _on_device(w_s, x.device).float(), x.ndim, 1
+    )
+    return [_requantize(ctx, acc.float() * scale, y_s, y_zp, channel_ndim=x.ndim)]
+
+
+@op("QLinearMatMul")
+def _qlinear_matmul(ctx, a, a_s, a_zp, b, b_s, b_zp, y_s, y_zp=None):
+    """Quantized matmul (per-tensor a scale, per-tensor or per-column b
+    scale)."""
+    a = _tensor(ctx, a)
+    b = _on_device(b, a.device)
+    acc = _int_matmul_acc(a, b, a_zp, b_zp)
+    # A 1-D b scale broadcasts along the output's last (column) axis.
+    scale = _on_device(a_s, a.device).float() * _on_device(b_s, a.device).float()
+    return [_requantize(ctx, acc.float() * scale, y_s, y_zp)]
+
+
+@op("_QLinearGemm")
+def _qlinear_gemm(ctx, a, a_s, a_zp, b, b_s, b_zp, y_s, y_zp=None, bias=None):
+    """Internal fused op of the QDQ pass for quantized Gemm (alpha = beta = 1;
+    ``bias`` int32 at scale a_s * b_s; transB applies to the stored
+    weight, whose per-channel scale then runs along the output columns)."""
+    a = _tensor(ctx, a)
+    b = _on_device(b, a.device)
+    if int(ctx.attr("transA", 0)):
+        a = a.t()
+    if int(ctx.attr("transB", 0)):
+        b = b.t()
+    acc = _int_matmul_acc(a, b, a_zp, b_zp)
+    if bias is not None:
+        acc = acc + _on_device(bias, a.device).to(torch.int32)
+    scale = _on_device(a_s, a.device).float() * _on_device(b_s, a.device).float()
+    return [_requantize(ctx, acc.float() * scale, y_s, y_zp)]
+
+
+@op("ConvInteger")
+def _conv_integer(ctx, x, w, x_zp=None, w_zp=None):
+    x = _tensor(ctx, x)
+    return [_int_conv_acc(ctx, x, _on_device(w, x.device), x_zp, w_zp)]
+
+
+@op("MatMulInteger")
+def _matmul_integer(ctx, a, b, a_zp=None, b_zp=None):
+    a = _tensor(ctx, a)
+    return [_int_matmul_acc(a, _on_device(b, a.device), a_zp, b_zp)]
+
+
+@op("DynamicQuantizeLinear")
+def _dynamic_quantize_linear(ctx, x):
+    """Per the ONNX spec: uint8 with the range widened to include zero,
+    scale = (max - min) / 255, saturating round-half-even."""
+    x = _tensor(ctx, x).float()
+    zero, one = x.new_zeros(()), x.new_ones(())
+    x_min = torch.minimum(x.min(), zero)
+    x_max = torch.maximum(x.max(), zero)
+    scale = (x_max - x_min) / x.new_full((), 255.0)
+    safe_scale = torch.where(scale == 0, one, scale)
+    zp = torch.clamp(torch.round(zero - x_min / safe_scale), 0.0, 255.0)
+    y = torch.clamp(torch.round(x / safe_scale) + zp, 0.0, 255.0).to(torch.uint8)
+    return [y, scale, zp.to(torch.uint8)]
 
 
 # ---------------------------------------------------------------------------

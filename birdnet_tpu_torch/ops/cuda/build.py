@@ -105,6 +105,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bn_filterbank_logpower.restype = i
     lib.bn_stft_melspec.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
     lib.bn_stft_melspec.restype = i
+    lib.bn_qconv1x1_requant.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
+    lib.bn_qconv1x1_requant.restype = i
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,0 +1,128 @@
+"""Fused int8 1x1 convolution + requantize (B3): the CUDA kernel and its
+plain version.
+
+The kernel, ``qconv1x1_requant_kernel`` in ``birdnet_tpu_torch/csrc/qconv.cu``,
+replaces the Pallas kernel
+``birdnet_tpu/ops/pallas/qconv.py::qconv1x1_requant``. Per image it computes
+
+    acc = w [C_out, C_in] @ x [C_in, N]          int8 x int8, int32 sums
+    v   = float32(acc + bias) * scale            scale = x_s * w_s per channel
+    y   = saturate_int8(round_half_even(act(v) / y_scale))
+
+bit for bit as the unfused ``QLinearConv`` lowering: the activation runs on
+the dequantized value, and the output scale divides (a multiply by its
+float32 reciprocal flips round-half-even ties). The TPU kernel takes only
+spatial sizes that are multiples of 128, its lane tiling; this one takes
+every ``N >= 1``.
+
+A wrapper dispatches on the tensor's device: a CPU tensor takes the plain
+PyTorch version (:func:`qconv1x1_requant_plain`), a CUDA tensor launches the
+kernel (building it on first use) or raises. ``LAUNCHES`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .build import check, load_library
+
+LAUNCHES = {"qconv1x1_requant": 0}
+
+# Activations foldable into the requantize epilogue, on the dequantized
+# float32 value. silu is v * sigmoid(v), as the JAX package writes it (not
+# F.silu, which divides); the kernel's codes follow the same order.
+EPILOGUE_ACTS = {
+    "": lambda v: v,
+    "relu": lambda v: torch.clamp_min(v, 0.0),
+    "sigmoid": torch.sigmoid,
+    "silu": lambda v: v * torch.sigmoid(v),
+    "tanh": torch.tanh,
+}
+_ACT_CODES = {"": 0, "relu": 1, "sigmoid": 2, "silu": 3, "tanh": 4}
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, bias_i32: Optional[torch.Tensor],
+           scale: torch.Tensor, act: str) -> None:
+    if x.ndim != 3 or x.dtype != torch.int8:
+        raise ValueError(f"x must be int8 [B, C_in, N], got {x.dtype} {tuple(x.shape)}")
+    if w.ndim != 2 or w.dtype != torch.int8 or w.shape[1] != x.shape[1]:
+        raise ValueError(
+            f"w must be int8 [C_out, {x.shape[1]}], got {w.dtype} {tuple(w.shape)}"
+        )
+    c_out = w.shape[0]
+    if bias_i32 is not None and (bias_i32.dtype != torch.int32
+                                 or tuple(bias_i32.shape) != (c_out,)):
+        raise ValueError(
+            f"bias must be int32 [{c_out}], got {bias_i32.dtype} {tuple(bias_i32.shape)}"
+        )
+    if scale.dtype != torch.float32 or tuple(scale.shape) != (c_out,):
+        raise ValueError(
+            f"scale must be float32 [{c_out}], got {scale.dtype} {tuple(scale.shape)}"
+        )
+    if act not in EPILOGUE_ACTS:
+        raise ValueError(f"unknown epilogue activation {act!r}")
+
+
+def qconv1x1_requant_plain(x: torch.Tensor, w: torch.Tensor,
+                           bias_i32: Optional[torch.Tensor], scale: torch.Tensor,
+                           y_scale: float, act: str = "") -> torch.Tensor:
+    """Plain PyTorch version of :func:`qconv1x1_requant`: the int32
+    accumulator from a float64 matmul (exact while C_in * 127 * 128 < 2^53),
+    then the same float32 epilogue."""
+    _check(x, w, bias_i32, scale, act)
+    acc = torch.matmul(w.double(), x.double()).to(torch.int32)  # [B, C_out, N]
+    if bias_i32 is not None:
+        acc = acc + bias_i32.reshape(1, -1, 1)
+    v = EPILOGUE_ACTS[act](acc.float() * scale.reshape(1, -1, 1))
+    # A divisor on the tensor's device: CUDA's true division turns a host
+    # scalar divisor into a multiply by its reciprocal.
+    divisor = torch.full((1,), float(y_scale), dtype=torch.float32, device=v.device)
+    return torch.round(v / divisor).clamp(-128, 127).to(torch.int8)
+
+
+def qconv1x1_requant(x: torch.Tensor, w: torch.Tensor,
+                     bias_i32: Optional[torch.Tensor], scale: torch.Tensor,
+                     y_scale: float, act: str = "") -> torch.Tensor:
+    """Fused quantized 1x1 conv: ``x`` int8 ``[B, C_in, N]`` (N the flattened
+    spatial size), ``w`` int8 ``[C_out, C_in]``, ``bias_i32`` int32
+    ``[C_out]`` at scale ``x_s * w_s`` (or None), ``scale`` float32
+    ``[C_out]`` = ``x_s * w_s``, ``y_scale`` the output scale, ``act`` one
+    of ``""``, relu, sigmoid, silu, tanh. Returns int8 ``[B, C_out, N]``."""
+    _check(x, w, bias_i32, scale, act)
+    if x.device.type == "cpu":
+        return qconv1x1_requant_plain(x, w, bias_i32, scale, y_scale, act)
+    if x.device.type != "cuda":
+        raise ValueError(f"qconv1x1_requant runs on CUDA or CPU tensors, got {x.device}")
+    for t in (w, bias_i32, scale):
+        if t is None:
+            continue
+        if t.device != x.device:
+            raise ValueError(f"tensor on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError("qconv1x1_requant takes contiguous tensors")
+    if not x.is_contiguous():
+        raise ValueError("qconv1x1_requant takes contiguous tensors")
+    n_img, c_in, n = x.shape
+    c_out = w.shape[0]
+    out = torch.empty((n_img, c_out, n), dtype=torch.int8, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = load_library()
+    status = lib.bn_qconv1x1_requant(
+        x.data_ptr(), w.data_ptr(),
+        None if bias_i32 is None else bias_i32.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), n_img, c_in, c_out, n,
+        float(y_scale), _ACT_CODES[act],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check(status, "qconv1x1_requant kernel")
+    LAUNCHES["qconv1x1_requant"] += 1
+    return out

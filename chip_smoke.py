@@ -8,15 +8,28 @@ exits non-zero:
 1. device  — CUDA must be available; prints the card's name and power limit
              (nvidia-smi) on a line of its own.
 2. build   — compiles the CUDA kernels from birdnet_tpu_torch/csrc with nvcc.
-3. kernel  — each frontend kernel against its plain PyTorch version at the
-             main path's shapes (32 segments of 144000 samples, flen 1024,
-             hop 280, 96 mels or filters), in bf16 and float32, and in
-             float32 against the f64 oracle; times both with CUDA events.
+3. kernel  — each frontend kernel (B1, B2) against its plain PyTorch
+             version at the main path's shapes (32 segments of 144000
+             samples, flen 1024, hop 280, 96 mels or filters), in bf16 and
+             float32, and in float32 against the f64 oracle; the int8 1x1
+             conv + requantize kernel (B3) against its plain version at
+             three shapes of the int8 v2.4 graph at batch 32 and in a case
+             whose output scale has an inexact float32 reciprocal; times
+             each kernel and its plain version with CUDA events.
 4. slice   — generates full-width BirdNET v2.4 ONNX files (conv and STFT
              frontends, 6522 species, random weights from a seed), builds a
              Classifier on each at precision "fast", runs predict and
              predict_batch(32), checks that the frontend kernel ran, and
              compares the logits with the same file at "fp32".
+5. int8    — on the same files, builds int8 Classifiers (synthetic
+             calibration) at "fast" (B1 or B2, and B3) and at "mixed" (B3),
+             runs predict and predict_batch(32) and checks that the kernels
+             ran; checks every node of the full-width int8 graph on the
+             card against the same node on the CPU, and the int8 logits of
+             a small v2.4 model against its fp32 logits.
+
+Before each of the two driven paths (slice, int8) every launch count is
+set to 0; the counts are read right after it.
 
 The line before the last is the kernels' summary; the last line is
 ``{"ok": true, "device": {...}}``. The script imports no JAX.
@@ -36,23 +49,73 @@ import numpy as np
 import torch
 
 from birdnet_tpu_torch import Classifier
+from birdnet_tpu_torch.compiler.importer import (
+    consts_to_device,
+    import_onnx,
+    interpret_graph,
+    params_to_torch,
+)
+from birdnet_tpu_torch.compiler.ops import OpContext, get_lowering
+from birdnet_tpu_torch.compiler.quantize import (
+    quantize_model,
+    synthetic_calibration_segments,
+)
 from birdnet_tpu_torch.compiler._melbank import mel_weight_matrix
 from birdnet_tpu_torch.models import birdnet_v24
 from birdnet_tpu_torch.onnx import proto as P
 from birdnet_tpu_torch.ops.cuda import build
 from birdnet_tpu_torch.ops.cuda import frontend as fe
+from birdnet_tpu_torch.ops.cuda import qconv as qc
 
 N_SEG, S, HOP, FLEN, N_MELS = 32, 144_000, 280, 1024, 96
 SEED = 0
-SOURCE = "birdnet_tpu_torch/csrc/frontend.cu"
+CARD = torch.device("cuda", 0)
+SOURCES = {
+    "stft_melspec": "birdnet_tpu_torch/csrc/frontend.cu",
+    "filterbank_logpower": "birdnet_tpu_torch/csrc/frontend.cu",
+    "qconv1x1_requant": "birdnet_tpu_torch/csrc/qconv.cu",
+}
 # The TPU kernels these replace (the wrappers that reach pl.pallas_call).
 REPLACES = {
     "stft_melspec": "birdnet_tpu/ops/pallas/frontend.py:463",
     "filterbank_logpower": "birdnet_tpu/ops/pallas/frontend.py:334",
+    "qconv1x1_requant": "birdnet_tpu/ops/pallas/qconv.py:91",
 }
+# B3 at batch 32: (C_in, C_out, N = H*W, activation), 1x1 convs of the int8
+# v2.4 graph; the first is the one the kernels line reports.
+QCONV_SHAPES = [
+    (24, 96, 48 * 256, "silu"),
+    (96, 40, 12 * 256, ""),
+    (1280, 320, 1, "silu"),  # squeeze-excite
+]
+# B3 against its plain version: equal codes without an activation or with
+# relu; with sigmoid/silu (exp may round differently) at most 1 code apart
+# on at most this share of the codes.
+QCONV_MAX_DIFF_SHARE = 1e-4
 # fast vs fp32 logits on the full-width files: scaled max |Δ| and top-1.
 SCALED_LOGIT_TOL = 1e-1
 MIN_TOP1_AGREE = 29
+# int8 vs the float file at fp32 on the small model (the bound of
+# tests/test_quantize.py): the fp32 winner in the int8 top-3 on this many
+# of the 32 rows, every row's logit correlation at least this.
+MIN_TOP3_HOLDS_FP32_WINNER = 29
+MIN_LOGIT_CORRELATION = 0.98
+# The small model: BirdNET v2.4's graph at a tenth of the width, one block
+# per stage, all 6522 species.
+SMALL = dict(width=0.1, depth=1)
+# Each node of the int8 graph, card against CPU: float outputs within this
+# share of their largest magnitude (fp32 sums in another order; under
+# mixed/fast about two bf16 ulps).
+FLOAT_NODE_TOL = {"fp32": 1e-4, "mixed": 2 ** -6, "fast": 2 ** -6}
+
+
+def reset_launches() -> None:
+    fe.reset_launches()
+    qc.reset_launches()
+
+
+def read_launches() -> dict:
+    return {**fe.LAUNCHES, **qc.LAUNCHES}
 
 
 def emit(obj) -> None:
@@ -163,6 +226,80 @@ def phase_kernels(dev) -> dict:
                 raise AssertionError(f"{name} ({dtype}) disagrees: {line}")
             if dtype == torch.bfloat16:  # the dtype the main path runs
                 summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    summary["qconv1x1_requant"] = phase_qconv(dev)
+    return summary
+
+
+def _qconv_case(rng, dev, c_in, c_out, n, hostile):
+    """Inputs of one B3 call at batch 32. Random codes and scales that keep
+    most outputs unsaturated; the hostile case has x_s * w_s = 0.15 and
+    y_s = 0.3, whose float32 reciprocal is inexact."""
+    if hostile:
+        x = rng.integers(-10, 11, (N_SEG, c_in, n))
+        w = rng.integers(-3, 4, (c_out, c_in))
+        bias = rng.integers(-20, 21, c_out)
+        scale, y_scale = np.full(c_out, 0.15, np.float32), 0.3
+    else:
+        x = rng.integers(-127, 128, (N_SEG, c_in, n))
+        w = rng.integers(-127, 128, (c_out, c_in))
+        bias = rng.integers(-5000, 5001, c_out)
+        acc_std = np.sqrt(c_in) * 5418.0  # uniform int8 x int8 products
+        scale = (rng.uniform(0.5, 1.5, c_out) / acc_std).astype(np.float32)
+        y_scale = 3.0 / 127.0
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a).astype(dt)).to(dev)
+    return (t(x, np.int8), t(w, np.int8), t(bias, np.int32), t(scale, np.float32),
+            np.float32(y_scale))
+
+
+def phase_qconv(dev) -> dict:
+    """B3 against its plain version; returns the kernels-line summary (the
+    first shape's times, the largest code difference over all cases)."""
+    rng = np.random.default_rng(SEED + 2)
+    cases = [(c_in, c_out, n, act, False) for c_in, c_out, n, act in QCONV_SHAPES]
+    cases.append((8, 16, 48 * 256, "", True))
+    summary = None
+    worst = 0
+    for c_in, c_out, n, act, hostile in cases:
+        x, w, bias, scale, y_scale = _qconv_case(rng, dev, c_in, c_out, n, hostile)
+        run = lambda: qc.qconv1x1_requant(x, w, bias, scale, y_scale, act)
+        plain = lambda: qc.qconv1x1_requant_plain(x, w, bias, scale, y_scale, act)
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.shape != (N_SEG, c_out, n) or got.dtype != torch.int8:
+            raise AssertionError(f"qconv: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+        diff = (got.int() - want.int()).abs()
+        max_diff, n_diff = int(diff.max()), int((diff > 0).sum())
+        if act in ("", "relu"):
+            ok = max_diff == 0
+        else:
+            ok = max_diff <= 1 and n_diff <= QCONV_MAX_DIFF_SHARE * diff.numel()
+        line = {"phase": "kernel", "name": "qconv1x1_requant",
+                "shape": [N_SEG, c_in, n], "c_out": c_out, "act": act,
+                "reciprocal_hostile": hostile, "max_code_diff": max_diff,
+                "codes_differing": n_diff, "codes": diff.numel(),
+                "unsaturated_share": float(((want > -128) & (want < 127)).float().mean())}
+        if hostile:
+            # What a multiply by the reciprocal would have given: the case
+            # tests something only if that flips codes.
+            acc = torch.matmul(w.double(), x.double()).to(torch.int32) + bias.reshape(1, -1, 1)
+            v = acc.float() * scale.reshape(1, -1, 1)
+            recip = 1.0 / torch.full((1,), float(y_scale), device=dev)
+            flips = int((torch.round(v * recip).clamp(-128, 127).to(torch.int8) != want).sum())
+            line["reciprocal_multiply_would_flip"] = flips
+            ok = ok and flips > 0
+        k1, p1, p2, k2 = time_ms(run), time_ms(plain), time_ms(plain), time_ms(run)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        line.update(ms=ms, plain_ms=plain_ms, us_per_image=1e3 * ms / N_SEG,
+                    plain_us_per_image=1e3 * plain_ms / N_SEG, ok=ok)
+        emit(line)
+        if not ok:
+            raise AssertionError(f"qconv1x1_requant disagrees with its plain version: {line}")
+        worst = max(worst, max_diff)
+        if summary is None:
+            summary = {"ms": ms, "plain_ms": plain_ms}
+    summary["max_abs_err"] = worst
     return summary
 
 
@@ -178,72 +315,229 @@ def seg_per_s(clf, segs, calls: int = 10) -> float:
     return statistics.median(rates)
 
 
-def phase_slice(card: str) -> dict:
-    rng = np.random.default_rng(SEED + 1)
-    segs = (rng.normal(size=(N_SEG, S)) * 0.1).astype(np.float32)
-    labels = [f"Genus{i}_species{i}_Common {i}" for i in range(birdnet_v24.NUM_SPECIES)]
-    frontend_kernel = {"conv": "filterbank_logpower", "stft": "stft_melspec"}
-    fast = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        paths = {}
-        for frontend in frontend_kernel:
-            paths[frontend] = str(Path(tmp) / f"birdnet_v24_{frontend}.onnx")
-            P.save_model(birdnet_v24.build_model(seed=SEED, frontend=frontend),
-                         paths[frontend])
+FRONTEND_KERNEL = {"conv": "filterbank_logpower", "stft": "stft_melspec"}
+LABELS = [f"Genus{i}_species{i}_Common {i}" for i in range(birdnet_v24.NUM_SPECIES)]
 
-        # The main path's run: every count starts at 0 here.
-        fe.reset_launches()
-        for frontend, counter in frontend_kernel.items():
-            before = fe.LAUNCHES[counter]
-            clf = (Classifier.builder().model_path(paths[frontend]).labels(labels)
-                   .precision("fast").top_k(5).build())
+
+def logits_of(results) -> np.ndarray:
+    return np.stack([r.raw_scores for r in results])
+
+
+def phase_slice(card: str, segs: np.ndarray, paths: dict) -> tuple:
+    """The float path at ``fast``. Returns (its launch counts, the fp32
+    logits per frontend, the fast classifiers per frontend)."""
+    fast = {}
+    ref_logits_of = {}
+    # The main path's run: every count starts at 0 here.
+    reset_launches()
+    for frontend, counter in FRONTEND_KERNEL.items():
+        before = fe.LAUNCHES[counter]
+        clf = (Classifier.builder().model_path(paths[frontend]).labels(LABELS)
+               .precision("fast").top_k(5).build())
+        one = clf.predict(segs[0])
+        batch = clf.predict_batch(segs)
+        if fe.LAUNCHES[counter] <= before:
+            raise AssertionError(f"{frontend}: the {counter} kernel never ran")
+        fast[frontend] = (clf, one, batch)
+    launches = read_launches()
+
+    for frontend, (clf, one, batch) in fast.items():
+        ref = (Classifier.builder().model_path(paths[frontend]).labels(LABELS)
+               .precision("fp32").top_k(5).build())
+        ref_batch = ref.predict_batch(segs)
+        logits = logits_of(batch)
+        ref_logits = ref_logits_of[frontend] = logits_of(ref_batch)
+        if logits.shape != (N_SEG, birdnet_v24.NUM_SPECIES) or not np.isfinite(logits).all():
+            raise AssertionError(f"{frontend}: logits {logits.shape}, finite={np.isfinite(logits).all()}")
+        if len(one.predictions) != 5 or len(batch[0].predictions) != 5:
+            raise AssertionError(f"{frontend}: expected 5 predictions per segment")
+        one_vs_batch = float(np.abs(one.raw_scores - batch[0].raw_scores).max()
+                             / np.abs(batch[0].raw_scores).max())
+        if not one_vs_batch < SCALED_LOGIT_TOL:
+            raise AssertionError(f"{frontend}: predict vs predict_batch row 0: {one_vs_batch}")
+        scaled = float(np.abs(logits - ref_logits).max() / np.abs(ref_logits).max())
+        top1 = int((logits.argmax(1) == ref_logits.argmax(1)).sum())
+        rates = {policy: seg_per_s(c, segs) for policy, c in (("fast", clf), ("fp32", ref))}
+        line = {"phase": "slice", "frontend": frontend, "kernel": FRONTEND_KERNEL[frontend],
+                "card": card,
+                "scaled_max_abs_logit_diff_fast_vs_fp32": scaled,
+                "top1_agree": f"{top1}/{N_SEG}",
+                "predict_batch32_seg_per_s_fast": rates["fast"],
+                "predict_batch32_seg_per_s_fp32": rates["fp32"],
+                "ok": scaled < SCALED_LOGIT_TOL and top1 >= MIN_TOP1_AGREE}
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"{frontend}: fast disagrees with fp32: {line}")
+    return launches, ref_logits_of, {f: c for f, (c, _, _) in fast.items()}
+
+
+def int8_agreement(ref: np.ndarray, logits: np.ndarray) -> dict:
+    """int8 logits against the float file's fp32 logits (the measures of
+    tests/test_quantize.py)."""
+    top3 = np.argsort(logits, axis=1)[:, -3:]
+    holds = int(sum(win in top3[i] for i, win in enumerate(ref.argmax(axis=1))))
+    corr = [float(np.corrcoef(a, b)[0, 1]) for a, b in zip(ref, logits)]
+    return {"fp32_winner_in_int8_top3": holds, "rows": len(ref),
+            "min_row_logit_correlation": min(corr),
+            "median_row_logit_correlation": float(np.median(corr)),
+            "scaled_max_abs_logit_diff_vs_fp32":
+                float(np.abs(logits - ref).max() / np.abs(ref).max())}
+
+
+def check_int8_nodes(path: str, policy: str, segs: np.ndarray) -> dict:
+    """Every node of the full-width int8 graph run on the card, against the
+    same node's lowering on the CPU fed the card's own inputs, so that no
+    rounding difference upstream can spread. Integer outputs must be equal,
+    except after a sigmoid/silu/tanh requantize epilogue (exp and tanh round
+    differently on the two devices): there at most 1 code apart, on at most
+    QCONV_MAX_DIFF_SHARE of all such codes of the graph. Float outputs agree
+    within FLOAT_NODE_TOL[policy] of the output's largest magnitude."""
+    dev, cpu = CARD, torch.device("cpu")
+    model = quantize_model(import_onnx(path), synthetic_calibration_segments(S), device=dev)
+    env = dict(consts_to_device(model.consts, dev))
+    env.update(params_to_torch(model.params, dev))
+    env[model.input_names[0]] = torch.from_numpy(segs).to(dev)
+    with torch.inference_mode():
+        interpret_graph(model.graph, model.opset, policy, env, model.output_names, dev)
+    host = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in env.items()}
+    nodes, worst_code, worst_float = {}, 0, 0.0
+    transcendental = {"codes": 0, "differing": 0}
+    with torch.inference_mode():
+        for node in model.graph.node:
+            args = [host[i] if i else None for i in node.input]
+            while args and args[-1] is None:
+                args.pop()
+            ctx = OpContext(node.op_type, node.attrs, model.opset, policy, node.name,
+                            len(node.output), env=host, out_names=node.output, device=cpu)
+            outs = get_lowering(node.op_type, node.domain)(ctx, *args)
+            for name, want in zip(node.output, outs):
+                got = host[name]
+                if not isinstance(want, torch.Tensor):
+                    want = torch.from_numpy(np.asarray(want))
+                if got.shape != want.shape or got.dtype != want.dtype:
+                    raise AssertionError(f"{node.op_type} {name}: card {got.dtype} "
+                                         f"{tuple(got.shape)}, CPU {want.dtype} {tuple(want.shape)}")
+                if got.is_floating_point():
+                    ref = want.float().abs().max().clamp_min(1e-30)
+                    err = float((got.float() - want.float()).abs().max() / ref)
+                    ok = err <= FLOAT_NODE_TOL[policy]
+                    worst_float = max(worst_float, err)
+                else:
+                    diff = (got.long() - want.long()).abs()
+                    max_diff = int(diff.max()) if diff.numel() else 0
+                    if node.op_type == "QLinearConv" and node.attrs.get("_fused_act", "") in (
+                            "sigmoid", "silu", "tanh"):
+                        transcendental["codes"] += diff.numel()
+                        transcendental["differing"] += int((diff > 0).sum())
+                        ok = max_diff <= 1
+                    else:
+                        ok = max_diff == 0
+                    worst_code = max(worst_code, max_diff)
+                if not ok:
+                    raise AssertionError(f"int8 node {node.op_type} {name} ({policy}) differs "
+                                         f"between the card and the CPU: code diff "
+                                         f"{worst_code}, scaled float diff {worst_float}")
+            nodes[node.op_type] = nodes.get(node.op_type, 0) + 1
+    result = {"nodes_checked": nodes, "max_code_diff": worst_code,
+              "max_scaled_float_diff": worst_float,
+              "transcendental_epilogue_codes": transcendental}
+    if transcendental["differing"] > QCONV_MAX_DIFF_SHARE * transcendental["codes"]:
+        raise AssertionError(f"int8 nodes ({policy}): {result}")
+    return result
+
+
+def phase_int8(card: str, segs: np.ndarray, paths: dict, tiny_paths: dict,
+               ref_logits_of: dict, float_fast: dict) -> dict:
+    """The int8 path (synthetic calibration) at ``fast`` and ``mixed`` on
+    the full-width files. Returns its launch counts.
+
+    What decides that its output is right: each node of the full-width int8
+    graph on the card against the CPU lowering of the same node
+    (check_int8_nodes), and the agreement bound of tests/test_quantize.py on
+    a small model calibrated on audio like the rows it classifies. The
+    full-width agreement with the fp32 float model is printed but decides
+    nothing: with random weights the full-width int8 model is chaotic (a
+    1e-6 relative change of the input moves its logits by about 0.15-0.19 of
+    their largest magnitude, the fp32 model's by 1e-5), so that bound
+    measures the random model, not the port. The JAX package's own int8
+    model misses it as well at half width."""
+    reset_launches()
+    int8 = {}
+    for frontend, counter in FRONTEND_KERNEL.items():
+        for policy in ("fast", "mixed"):
+            before = read_launches()
+            clf = (Classifier.builder().model_path(paths[frontend]).labels(LABELS)
+                   .precision(policy).top_k(5).int8().build())
             one = clf.predict(segs[0])
             batch = clf.predict_batch(segs)
-            if fe.LAUNCHES[counter] <= before:
-                raise AssertionError(f"{frontend}: the {counter} kernel never ran")
-            fast[frontend] = (clf, one, batch)
-        launches = dict(fe.LAUNCHES)
+            after = read_launches()
+            ran = [k for k in after if after[k] > before[k]]
+            need = ["qconv1x1_requant"] + ([counter] if policy == "fast" else [])
+            if any(k not in ran for k in need):
+                raise AssertionError(f"int8 {frontend} {policy}: kernels {need} must run, ran {ran}")
+            int8[frontend, policy] = (clf, one, batch)
+    launches = read_launches()
 
-        for frontend, (clf, one, batch) in fast.items():
-            ref = (Classifier.builder().model_path(paths[frontend]).labels(labels)
-                   .precision("fp32").top_k(5).build())
-            ref_batch = ref.predict_batch(segs)
-            logits = np.stack([r.raw_scores for r in batch])
-            ref_logits = np.stack([r.raw_scores for r in ref_batch])
-            if logits.shape != (N_SEG, birdnet_v24.NUM_SPECIES) or not np.isfinite(logits).all():
-                raise AssertionError(f"{frontend}: logits {logits.shape}, finite={np.isfinite(logits).all()}")
-            if len(one.predictions) != 5 or len(batch[0].predictions) != 5:
-                raise AssertionError(f"{frontend}: expected 5 predictions per segment")
-            one_vs_batch = float(np.abs(one.raw_scores - batch[0].raw_scores).max()
-                                 / np.abs(batch[0].raw_scores).max())
-            if not one_vs_batch < SCALED_LOGIT_TOL:
-                raise AssertionError(f"{frontend}: predict vs predict_batch row 0: {one_vs_batch}")
-            scaled = float(np.abs(logits - ref_logits).max() / np.abs(ref_logits).max())
-            top1 = int((logits.argmax(1) == ref_logits.argmax(1)).sum())
-            rates = {policy: seg_per_s(c, segs) for policy, c in (("fast", clf), ("fp32", ref))}
-            line = {"phase": "slice", "frontend": frontend, "kernel": frontend_kernel[frontend],
-                    "card": card,
-                    "scaled_max_abs_logit_diff_fast_vs_fp32": scaled,
-                    "top1_agree": f"{top1}/{N_SEG}",
-                    "predict_batch32_seg_per_s_fast": rates["fast"],
-                    "predict_batch32_seg_per_s_fp32": rates["fp32"],
-                    "ok": scaled < SCALED_LOGIT_TOL and top1 >= MIN_TOP1_AGREE}
-            emit(line)
-            if not line["ok"]:
-                raise AssertionError(f"{frontend}: fast disagrees with fp32: {line}")
+    for (frontend, policy), (clf, one, batch) in int8.items():
+        logits = logits_of(batch)
+        if logits.shape != (N_SEG, birdnet_v24.NUM_SPECIES) or not np.isfinite(logits).all():
+            raise AssertionError(f"int8 {frontend} {policy}: logits {logits.shape}, "
+                                 f"finite={np.isfinite(logits).all()}")
+        if len(one.predictions) != 5 or len(batch[0].predictions) != 5:
+            raise AssertionError(f"int8 {frontend} {policy}: expected 5 predictions per segment")
+        line = {"phase": "int8", "frontend": frontend, "policy": policy, "card": card,
+                "full_width_vs_fp32": int8_agreement(ref_logits_of[frontend], logits)}
+        line["nodes_card_vs_cpu"] = check_int8_nodes(paths[frontend], policy, segs[:4])
+        if policy == "fast":
+            # In turns: float fast, int8 fast, int8 mixed, float fast.
+            rates = [seg_per_s(float_fast[frontend], segs), seg_per_s(clf, segs),
+                     seg_per_s(int8[frontend, "mixed"][0], segs),
+                     seg_per_s(float_fast[frontend], segs)]
+            line.update(predict_batch32_seg_per_s_int8_fast=rates[1],
+                        predict_batch32_seg_per_s_int8_mixed=rates[2],
+                        predict_batch32_seg_per_s_float_fast=(rates[0] + rates[3]) / 2)
+        # The small model, calibrated on a [16, S] stack of audio drawn as
+        # the rows are: the fp32 winner in the int8 top-3, every row's logit
+        # correlation.
+        calibration = (np.random.default_rng(SEED + 3).normal(size=(16, S)) * 0.1
+                       ).astype(np.float32)
+        small = lambda b: b.model_path(tiny_paths[frontend]).labels(LABELS).top_k(5)
+        small_ref = logits_of(small(Classifier.builder()).precision("fp32").build()
+                              .predict_batch(segs))
+        small_q = logits_of(small(Classifier.builder()).precision(policy)
+                            .int8(calibration).build().predict_batch(segs))
+        agree = line["small_model_vs_fp32"] = int8_agreement(small_ref, small_q)
+        line["ok"] = (agree["fp32_winner_in_int8_top3"] >= MIN_TOP3_HOLDS_FP32_WINNER
+                      and agree["min_row_logit_correlation"] >= MIN_LOGIT_CORRELATION)
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"int8 {frontend} {policy} disagrees with fp32: {line}")
     return launches
 
 
 def main() -> int:
     name, smi = phase_device()
     phase_build()
-    summary = phase_kernels(torch.device("cuda", 0))
-    launches = phase_slice(smi)
+    summary = phase_kernels(CARD)
+    rng = np.random.default_rng(SEED + 1)
+    segs = (rng.normal(size=(N_SEG, S)) * 0.1).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, tiny_paths = {}, {}
+        for frontend in FRONTEND_KERNEL:
+            paths[frontend] = str(Path(tmp) / f"birdnet_v24_{frontend}.onnx")
+            P.save_model(birdnet_v24.build_model(seed=SEED, frontend=frontend),
+                         paths[frontend])
+            tiny_paths[frontend] = str(Path(tmp) / f"birdnet_v24_{frontend}_small.onnx")
+            P.save_model(birdnet_v24.build_model(seed=SEED, frontend=frontend, **SMALL),
+                         tiny_paths[frontend])
+        float_launches, ref_logits_of, float_fast = phase_slice(smi, segs, paths)
+        int8_launches = phase_int8(smi, segs, paths, tiny_paths, ref_logits_of, float_fast)
+    launches = {k: float_launches[k] + int8_launches[k] for k in float_launches}
     kernels = []
     for kname, s in summary.items():
         if launches[kname] <= 0:
             raise AssertionError(f"{kname} was not launched on the main path")
-        kernels.append({"name": kname, "route": "cuda", "source": SOURCE,
+        kernels.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
                         "replaces": REPLACES[kname], "launches": launches[kname],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                         "plain_ms": s["plain_ms"]})

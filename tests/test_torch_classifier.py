@@ -1,6 +1,8 @@
 """The port's main path end to end on the CPU, against the JAX package:
 ONNX file → import → forward (fp32 and fast) → Classifier predict /
-predict_batch, the fused top-K, and the explicit-device rule."""
+predict_batch, the fused top-K, the explicit-device rule, and the builder
+and model surface both packages share (model_type, allowed_species,
+param_bytes)."""
 
 import numpy as np
 import pytest
@@ -166,8 +168,8 @@ def test_cpu_device_resolves():
 def test_unported_surface_says_so(model_paths):
     with pytest.raises(NotImplementedError, match="A10"):
         tbt.Classifier.builder().with_mesh()
-    with pytest.raises(NotImplementedError, match="A8"):
-        tbt.Classifier.builder().int8()
+    builder = tbt.Classifier.builder()
+    assert builder.int8() is builder  # int8 is ported (ROADMAP A8)
     mine, _ = _classifiers(model_paths["tiny-conv"])
     with pytest.raises(NotImplementedError, match="A4"):
         mine.analyze_samples(np.zeros(144000, np.float32))
@@ -193,3 +195,39 @@ def test_fused_topk_matches_jax_on_nan_and_inf(masked):
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     np.testing.assert_allclose(conf.numpy(), np.asarray(jconf), rtol=1e-6)
     assert idx.dtype == torch.int32
+
+
+def test_model_type_override_matches_jax(model_paths):
+    """ClassifierBuilder.model_type overrides detection, validated against
+    the file's shapes: the matching type builds the same config in both
+    packages, a mismatching one raises the same error class."""
+    path = model_paths["tiny-conv"]
+    mine = (tbt.Classifier.builder().model_path(path).labels(LABELS)
+            .model_type(tbt.ModelType.BIRDNET_V24).with_device("cpu").build())
+    theirs = (jbt.Classifier.builder().model_path(path).labels(LABELS)
+              .model_type(jbt.ModelType.BIRDNET_V24).build())
+    assert repr(mine.config) == repr(theirs.config)
+    errors = []
+    for pkg in (tbt, jbt):
+        builder = pkg.Classifier.builder().model_path(path).labels(LABELS)
+        if pkg is tbt:
+            builder = builder.with_device("cpu")
+        with pytest.raises(pkg.ModelDetectionError) as e:
+            builder.model_type(pkg.ModelType.BIRDNET_V30).build()
+        errors.append((type(e.value).__name__, str(e.value)))
+    assert errors[0] == errors[1]
+
+
+def test_allowed_species_matches_jax(model_paths):
+    allowed = LABELS[2:6]
+    mine, theirs = _classifiers(model_paths["tiny-conv"], species=allowed)
+    assert mine.allowed_species() == theirs.allowed_species() == allowed
+    mine, theirs = _classifiers(model_paths["tiny-conv"])
+    assert mine.allowed_species() is theirs.allowed_species() is None
+
+
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_param_bytes_matches_jax(model_paths, name):
+    mine = timp.import_onnx(model_paths[name])
+    theirs = jimp.import_onnx(model_paths[name])
+    assert mine.param_bytes() == theirs.param_bytes() > 0

@@ -53,6 +53,34 @@ def test_copy_is_byte_identical(rel):
     assert dst == src, f"birdnet_tpu_torch/{rel} drifted from birdnet_tpu/{rel}"
 
 
+# compiler/quantize.py is a copy with one function rewritten and one keyword
+# added: _collect_absmax interprets the graph with the port's interpreter on
+# an explicit device (the JAX package's runs jax on the host CPU), and
+# quantize_model passes that device through. The comparison drops
+# _collect_absmax from both files and the two device edits from the port's.
+_QUANTIZE_DEVICE_EDITS = [
+    (b'    device="cpu",\n) -> ImportedModel:', b") -> ImportedModel:"),
+    (b"graph=graph, device=device)", b"graph=graph)"),
+]
+
+
+def _without_collect_absmax(src: bytes) -> bytes:
+    start = src.index(b"def _collect_absmax(")
+    end = src.index(b"def quantize_model(")
+    assert start < end
+    return src[:start] + src[end:]
+
+
+def test_quantize_copy_differs_only_in_calibration():
+    src = _without_collect_absmax((REPO / "birdnet_tpu/compiler/quantize.py").read_bytes())
+    dst = _without_collect_absmax(
+        (REPO / "birdnet_tpu_torch/compiler/quantize.py").read_bytes())
+    for edit, original in _QUANTIZE_DEVICE_EDITS:
+        assert dst.count(edit) == 1, edit
+        dst = dst.replace(edit, original)
+    assert dst == src, "birdnet_tpu_torch/compiler/quantize.py drifted"
+
+
 @pytest.fixture(scope="module", params=["conv", "stft"])
 def model_bytes(request):
     model = birdnet_v24.build_model(
@@ -140,13 +168,17 @@ def test_port_never_imports_jax():
     out = _run_isolated(
         "import importlib, pkgutil, sys\n"
         "import birdnet_tpu_torch as pkg\n"
+        "import birdnet_tpu_torch.compiler.quantize\n"
+        "import birdnet_tpu_torch.ops.cuda.qconv\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'birdnet_tpu', 'triton'))\n"
         "print('BAD', bad)\n"
+        "print('INT8', all(m in sys.modules for m in (\n"
+        "    'birdnet_tpu_torch.compiler.quantize', 'birdnet_tpu_torch.ops.cuda.qconv')))\n"
     )
-    assert "BAD []" in out
+    assert "BAD []" in out and "INT8 True" in out
 
 
 def test_codec_without_ml_dtypes():
