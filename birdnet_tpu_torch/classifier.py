@@ -13,13 +13,16 @@ Differences from the JAX package:
 - Build-time validation is one forward pass at batch 1 on that device.
 - int8 calibration runs on that device (the JAX package pins it to the
   host CPU).
-- Mesh sharding, ``.btck`` checkpoints, streaming analysis and batch
-  contexts are not ported yet; their methods raise ``NotImplementedError``
-  naming the ROADMAP item.
+- Streaming (``analyze_samples``, ``analyze_samples_iter``, ``analyze_wav``,
+  ``embed_samples``) runs on the classifier's device at its precision;
+  ``analyze_wav(resample=True)`` resamples there too.
+- Mesh sharding, ``.btck`` checkpoints and batch contexts are not ported
+  yet; their methods raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -214,6 +217,7 @@ class ClassifierBuilder:
             engine.warmup(self._warmup_batches)
         return Classifier(
             engine=engine,
+            imported=imported,
             config=config,
             labels=labels,
             top_k=self._top_k,
@@ -256,6 +260,7 @@ class Classifier:
     def __init__(
         self,
         engine: InferenceEngine,
+        imported,
         config: ModelConfig,
         labels: List[str],
         top_k: int,
@@ -263,6 +268,9 @@ class Classifier:
         species_mask=None,
     ):
         self._engine = engine
+        self._imported = imported
+        self._stream = None
+        self._stream_lock = threading.Lock()
         self._config = config
         self._labels = labels
         self._top_k = top_k
@@ -418,17 +426,156 @@ class Classifier:
     def save_checkpoint(self, path) -> None:
         _not_ported(".btck checkpoints", "A7")
 
-    def analyze_samples(self, *args, **kwargs):
-        _not_ported("streaming analysis", "A4")
+    # -- streaming whole-recording path ---------------------------------------
 
-    def analyze_samples_iter(self, *args, **kwargs):
-        _not_ported("streaming analysis", "A4")
+    def _streaming_engine(self):
+        """The streaming engine, built on first use. It shares the per-call
+        engine's params (no second copy on the device) and runs at its
+        precision."""
+        if self._stream is None:
+            with self._stream_lock:
+                if self._stream is None:
+                    from .compiler.stream import StreamingEngine
 
-    def analyze_wav(self, *args, **kwargs):
-        _not_ported("streaming analysis", "A4")
+                    self._stream = StreamingEngine(
+                        self._imported,
+                        self._config,
+                        device=self._engine.device,
+                        precision=self._engine.precision,
+                        top_k=self._top_k,
+                        params=self._engine.params,
+                        species_mask=self._species_mask,
+                    )
+        return self._stream
 
-    def embed_samples(self, *args, **kwargs):
-        _not_ported("streaming embeddings", "A4")
+    def analyze_samples(
+        self,
+        samples,
+        overlap_seconds: float = 0.0,
+        options: Optional[InferenceOptions] = None,
+        species_mask: Optional[np.ndarray] = None,
+    ):
+        """Classify every (overlapping) segment of a full recording in one
+        streaming pass (the reference CLI's host-side chunk → predict_batch
+        loop, birdnet-analyze.rs:707-743, on the device): audio uploads once
+        per superchunk, framing, inference and top-K run on the device, and
+        only top-K results come back.
+
+        ``samples``: 1-D float32 in [-1, 1) or raw int16 PCM (scaled on the
+        device). Returns ``list[(start_time_seconds, list[Prediction])]``.
+        ``species_mask``: optional per-call bool [num_species] candidate
+        mask (composes with the build-time species list).
+        """
+        mask = self._validate_call_mask(species_mask)
+        eng = self._streaming_engine()
+        conf, idx, times = eng.analyze(
+            samples, overlap_seconds, options, species_mask=mask
+        )
+        out = []
+        for i in range(conf.shape[0]):
+            preds = self._mask_preds(top_k_from_device(
+                conf[i], idx[i], self._labels, self._min_confidence
+            ), mask)
+            out.append((float(times[i]), preds))
+        return out
+
+    def _validate_call_mask(self, species_mask):
+        if species_mask is None:
+            return None
+        mask = np.asarray(species_mask, dtype=bool).reshape(-1)
+        if mask.shape[0] != self._config.num_species:
+            raise InputSizeError(
+                expected=self._config.num_species, got=mask.shape[0]
+            )
+        return mask
+
+    def analyze_samples_iter(
+        self,
+        samples,
+        overlap_seconds: float = 0.0,
+        options: Optional[InferenceOptions] = None,
+        chunk_segments: Optional[int] = None,
+        species_mask: Optional[np.ndarray] = None,
+    ):
+        """Generator variant of :meth:`analyze_samples`: yields
+        ``(start_time, predictions)`` chunk by chunk, so callers see partial
+        results before the whole recording finishes and cancellation between
+        chunks loses at most one chunk of output."""
+        from .compiler.stream import MAX_TILES
+
+        mask = self._validate_call_mask(species_mask)
+        eng = self._streaming_engine()
+        samples = np.asarray(samples)
+        S = self._config.sample_count
+        step = S - int(overlap_seconds * self._config.sample_rate)
+        if step <= 0:
+            raise InferenceError("overlap must be smaller than the segment duration")
+        n_total = samples.shape[0]
+        n_segments = -(-n_total // step) if n_total else 0
+        if chunk_segments is None:
+            chunk_segments = MAX_TILES * eng.tile
+        for seg0 in range(0, n_segments, chunk_segments):
+            seg1 = min(seg0 + chunk_segments, n_segments)
+            lo = seg0 * step
+            hi = (seg1 - 1) * step + S
+            conf, idx, times = eng.analyze(
+                samples[lo:hi], overlap_seconds, options,
+                n_segments=seg1 - seg0, species_mask=mask,
+            )
+            t0 = lo / self._config.sample_rate
+            for i in range(conf.shape[0]):
+                preds = self._mask_preds(top_k_from_device(
+                    conf[i], idx[i], self._labels, self._min_confidence
+                ), mask)
+                yield (t0 + float(times[i]), preds)
+
+    def analyze_wav(
+        self,
+        path,
+        overlap_seconds: float = 0.0,
+        options: Optional[InferenceOptions] = None,
+        resample: bool = False,
+        species_mask: Optional[np.ndarray] = None,
+    ):
+        """One-call WAV analysis: read (raw int16), validate the sample rate
+        (optionally resampling on the classifier's device), and stream the
+        whole recording. Returns ``list[(start_time_seconds,
+        list[Prediction])]`` (the reference CLI's end-to-end flow,
+        birdnet-analyze.rs:275-650)."""
+        from .errors import AudioFormatError
+        from .utils.audio_io import read_wav
+
+        samples, rate, _ = read_wav(path, dtype="int16")
+        if rate != self._config.sample_rate:
+            if not resample:
+                raise AudioFormatError(
+                    f"model expects {self._config.sample_rate} Hz audio, WAV is "
+                    f"{rate} Hz (pass resample=True to convert)"
+                )
+            from .ops.resample import resample_audio
+
+            samples = resample_audio(
+                samples, rate, self._config.sample_rate, out_dtype=np.int16,
+                device=self._engine.device,
+            )
+        return self.analyze_samples(
+            samples, overlap_seconds, options, species_mask=species_mask
+        )
+
+    def embed_samples(
+        self,
+        samples,
+        overlap_seconds: float = 0.0,
+        options: Optional[InferenceOptions] = None,
+    ):
+        """Bulk embedding extraction over a full recording (v3.0/Perch):
+        returns ``(embeddings [N, E], start_times [N])``. A model without
+        embeddings (v2.4) raises :class:`InferenceError`."""
+        eng = self._streaming_engine()
+        _, _, times, emb = eng.analyze(
+            samples, overlap_seconds, options, with_embeddings=True
+        )
+        return emb, times
 
     # -- helpers -------------------------------------------------------------
 

@@ -142,10 +142,13 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _wait(done: Optional["torch.cuda.Event"], options: Optional[InferenceOptions]) -> None:
+def _wait(done: Optional["torch.cuda.Event"], options: Optional[InferenceOptions],
+          started: Optional[float] = None) -> None:
     """Block until the device work recorded by ``done`` is finished,
     honouring timeout and cancellation (``done`` None: host work, already
-    finished).
+    finished). The timeout runs from ``started`` (``time.monotonic()``,
+    default now): a streaming superchunk's budget starts at its dispatch,
+    so host work that already took longer than the timeout times out.
 
     A launched CUDA kernel cannot be killed (unlike
     ``ort::RunOptions::terminate``, reference: src/classifier.rs:539-547);
@@ -159,13 +162,15 @@ def _wait(done: Optional["torch.cuda.Event"], options: Optional[InferenceOptions
     token = options.cancellation_token
     # A non-positive timeout is an already-expired deadline.
     deadline = (
-        time.monotonic() + options.timeout
+        (time.monotonic() if started is None else started) + options.timeout
         if options.timeout is not None
         else None
     )
     if token is not None and token.is_cancelled():
         raise InferenceCancelledError()
-    if deadline is not None and options.timeout <= 0:
+    if deadline is not None and (
+        options.timeout <= 0 or (done is None and time.monotonic() > deadline)
+    ):
         raise InferenceTimeoutError(options.timeout)
     while True:
         if done is None or done.query():

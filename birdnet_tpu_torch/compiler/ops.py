@@ -2,7 +2,7 @@
 
 The counterpart of :mod:`birdnet_tpu.compiler.ops` for the ops a BirdNET
 v2.4 graph holds after import: the fused frontend, MBConv and stage-prefix
-nodes, ``Conv`` in its four shapes, ``BatchNormalization``, ``Add``,
+nodes (the stage prefix runs the B4 kernel under ``fast``/``bf16``), ``Conv`` in its four shapes, ``BatchNormalization``, ``Add``,
 ``Mul``, ``Log``, ``Sigmoid``, ``GlobalAveragePool``, ``Flatten``,
 ``Unsqueeze``, ``Transpose``, ``Gemm``, ``MatMul``, ``ReduceSumSquare``,
 ``MelWeightMatrix`` and ``STFT``; and the int8 set that post-training
@@ -24,13 +24,17 @@ Precision policies, as in the JAX package:
   a bf16 product, so the output is rounded to bf16 before it is cast back
   to float32 (the JAX package keeps the float32 accumulator);
 - ``fast``: bf16 operands and bf16 activations, float32 accumulation
-  inside the product; the fused frontends run the CUDA kernels;
+  inside the product; the fused frontends and the stage prefix run the
+  CUDA kernels;
 - ``bf16``: as ``fast`` (torch accumulates bf16 products in float32).
 """
 
 from __future__ import annotations
 
 import functools
+import os
+import threading
+from collections import OrderedDict
 from typing import Callable, Dict, List
 
 import numpy as np
@@ -893,12 +897,93 @@ def _fused_mbconv(ctx, *args):
     return list(_run_subgraph(ctx, ctx.attr("body")))
 
 
+_PREFIX_TABLES: "OrderedDict[tuple, tuple]" = OrderedDict()
+_PREFIX_TABLES_MAX = 8
+_PREFIX_TABLES_LOCK = threading.Lock()
+
+
+def _stage_prefix_tables(ctx, stem_w, stem_b, block_args, k, device):
+    """B4's weight tables for the first ``k`` blocks, built once per device
+    and weights (the forward's params and constants live as long as it
+    does). The cache holds the source tensors, so their storage, and with
+    it the key, cannot be reused while an entry lives."""
+    from ..ops.cuda.stage_prefix import BlockGeom, prepare_weights
+
+    sources = tuple(_tensor(ctx, v, device) for v in (stem_w, stem_b) + block_args[:10 * k])
+    key = (k, str(device)) + tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in sources)
+    with _PREFIX_TABLES_LOCK:
+        hit = _PREFIX_TABLES.get(key)
+        if hit is not None:
+            _PREFIX_TABLES.move_to_end(key)
+            return hit[0]
+    strides = [int(s) for s in ctx.attr("strides")]
+    residuals = [int(r) for r in ctx.attr("residuals")]
+    blocks, weights = [], []
+    for bi in range(k):
+        bw = dict(zip(("w1", "b1", "wd", "bd", "se1", "bse1", "se2", "bse2", "w3", "b3"),
+                      sources[2 + 10 * bi:12 + 10 * bi]))
+        blocks.append(BlockGeom(
+            c_in=bw["w1"].shape[1], c_mid=bw["w1"].shape[0], c_se=bw["se1"].shape[0],
+            c_out=bw["w3"].shape[0], stride=strides[bi], residual=bool(residuals[bi]),
+        ))
+        weights.append(bw)
+    tables = prepare_weights(sources[0], sources[1], weights, blocks, torch.bfloat16, device)
+    with _PREFIX_TABLES_LOCK:
+        _PREFIX_TABLES[key] = (tables, sources)
+        while len(_PREFIX_TABLES) > _PREFIX_TABLES_MAX:
+            _PREFIX_TABLES.popitem(last=False)
+    return tables
+
+
 @op("_FusedStagePrefix")
-def _fused_stage_prefix(ctx, *args):
-    """Stem + leading MBConv chain. The JAX package's megakernel for it is
-    off by default (k = 0), so the port interprets ``body``; the Hopper
-    kernel is a later port."""
-    return list(_run_subgraph(ctx, ctx.attr("body")))
+def _fused_stage_prefix(ctx, x, stem_w, stem_b, *block_args):
+    """Stem + leading MBConv chain (bundled by compiler/fuse_stage_prefix.py)
+    as the B4 kernel (ops/cuda/stage_prefix.py::stage_stack_forward), the
+    counterpart of the JAX lowering (birdnet_tpu/compiler/ops.py:2310).
+
+    Eligible under ``fast``/``bf16`` for ``x`` of shape ``[N, 1, 96, W]``
+    with W in {511, 512}; everything else interprets ``body``, identical to
+    the unfused graph. ``BIRDNET_STAGE123_SPLIT=k`` runs the kernel for the
+    stem + the first ``k`` blocks and interprets the rest from the kernel's
+    output; ``0`` interprets ``body``. Unset, the kernel runs every bundled
+    block: the JAX package's default (off) came from a TPU sweep, and on the
+    H100 the eager path is bound by host dispatch, which the kernel's dozen
+    launches cut (PERF.md has the A/B). Compute type bf16; ``fast_act``
+    under ``fast``."""
+    x = _tensor(ctx, x)
+    n_blocks = len(ctx.attr("strides"))
+    body = ctx.attr("body")
+    eligible = (
+        ctx.precision in ("fast", "bf16")
+        and x.ndim == 4
+        and x.shape[1] == 1
+        and x.shape[2] == 96
+        and x.shape[3] in (511, 512)
+    )
+    split = os.environ.get("BIRDNET_STAGE123_SPLIT")
+    k = n_blocks if split is None else max(0, min(n_blocks, int(split)))
+    if not eligible or k == 0:
+        return list(_run_subgraph(ctx, body))
+    from ..ops.cuda.stage_prefix import stage_stack_forward
+
+    tables = _stage_prefix_tables(ctx, stem_w, stem_b, block_args, k, x.device)
+    x_k = stage_stack_forward(x.to(torch.bfloat16), tables,
+                              fast_act=ctx.precision == "fast")
+    if k == n_blocks:
+        return [x_k]
+    # Partial split: interpret the remaining blocks of the body chain,
+    # seeded with the kernel's activation.
+    from ..onnx import proto as P
+
+    block_outputs = list(ctx.attr("block_outputs"))
+    suffix = P.GraphProto(
+        name="stage_prefix_suffix",
+        node=body.node[3 + k:],
+        initializer=[],
+        input=[],
+        output=[P.make_value_info(block_outputs[-1], _DT.FLOAT, [])],
+    )
+    return list(_run_subgraph(ctx, suffix, extra_env={block_outputs[k - 1]: x_k}))
 
 
 def _frontend_kernel_eligible(ctx, x) -> bool:

@@ -1,11 +1,18 @@
 // Audio-frontend kernels for Hopper (sm_90a): the conv-form filterbank
-// log-power (B2) and the STFT -> power -> mel -> log spectrogram (B1).
+// log-power (B2), the STFT -> power -> mel -> log spectrogram (B1), and the
+// conv-form frontend over overlapping windows of one 1-D buffer (B5).
 //
 // Replaces the Pallas TPU kernels in birdnet_tpu/ops/pallas/frontend.py:
 //   - filterbank_logpower_kernel replaces segments_filterbank_logpower
 //     (_kernel_prefolded -> _filterbank_body, _assemble_patch);
 //   - stft_melspec_kernel replaces segments_stft_melspec
-//     (_kernel_stft_prefolded).
+//     (_kernel_stft_prefolded);
+//   - frame_filterbank_logpower_kernel replaces frame_filterbank_logpower
+//     (_kernel_row_aligned, _kernel_flat): B2's body over n windows at
+//     offset i * step of one float32 or int16 buffer, the samples scaled in
+//     the kernel, the product in f32 (the TPU kernel's HIGHEST dot), the
+//     output f32 [n, T, F]. Any hop and step: the TPU's hop % 128 rule is a
+//     Mosaic layout rule.
 // Each computes what its TPU kernel computes, with the same rounding points:
 // the framed samples arrive in the compute type T (f32 or bf16), every
 // product accumulates in f32, B1's power is rounded to T before the mel
@@ -42,6 +49,10 @@ __device__ __forceinline__ float to_f32<float>(float v) {
 template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+template <>
+__device__ __forceinline__ float to_f32<short>(short v) {
+  return static_cast<float>(v);
 }
 
 template <typename T>
@@ -204,6 +215,56 @@ __global__ void stft_melspec_kernel(const T* __restrict__ seg,
   }
 }
 
+// B5: out[n, t, f] = log(y^2 + eps), y = sum_k (scale * audio[n * step +
+// t * hop + k]) * w[f, k], all in f32. The B2 body over one buffer: the
+// window's samples come straight from global memory at offset n * step.
+template <typename A>
+__global__ void frame_filterbank_logpower_kernel(
+    const A* __restrict__ audio, const float* __restrict__ wt,
+    float* __restrict__ out, long long audio_len, int step, int K, int hop,
+    int F, int n_frames, float eps, float scale) {
+  extern __shared__ float s_x[];
+  const int n = blockIdx.y;
+  const int t0 = blockIdx.x * kTileFrames;
+  const long long start = static_cast<long long>(n) * step + static_cast<long long>(t0) * hop;
+  const int span = tile_span(hop, K);
+  for (int i = threadIdx.x; i < span; i += blockDim.x) {
+    const long long g = start + i;
+    s_x[i] = g < audio_len ? __fmul_rn(to_f32<A>(audio[g]), scale) : 0.0f;
+  }
+  __syncthreads();
+
+  constexpr int kGroups = kTileFrames / kFbFramesPerThread;
+  const int half = (F + kColsPerThread - 1) / kColsPerThread;
+  for (int item = threadIdx.x; item < half * kGroups; item += blockDim.x) {
+    const int f0 = item % half;
+    const int f1 = f0 + half;
+    const int j0 = (item / half) * kFbFramesPerThread;
+    const bool has1 = f1 < F;
+    float acc0[kFbFramesPerThread] = {};
+    float acc1[kFbFramesPerThread] = {};
+    const float* xs = s_x + j0 * hop;
+    for (int k = 0; k < K; ++k) {
+      const float w0 = wt[static_cast<size_t>(k) * F + f0];
+      const float w1 = has1 ? wt[static_cast<size_t>(k) * F + f1] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < kFbFramesPerThread; ++j) {
+        const float v = xs[j * hop + k];
+        acc0[j] = fmaf(v, w0, acc0[j]);
+        acc1[j] = fmaf(v, w1, acc1[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kFbFramesPerThread; ++j) {
+      const int t = t0 + j0 + j;
+      if (t >= n_frames) break;
+      float* row = out + (static_cast<size_t>(n) * n_frames + t) * F;
+      row[f0] = logf(__fadd_rn(__fmul_rn(acc0[j], acc0[j]), eps));
+      if (has1) row[f1] = logf(__fadd_rn(__fmul_rn(acc1[j], acc1[j]), eps));
+    }
+  }
+}
+
 int round_up_threads(int items) {
   const int t = (items + 31) / 32 * 32;
   return t < 1024 ? t : 1024;
@@ -252,6 +313,24 @@ int launch_stft(const void* seg, const void* bc, const void* bs,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename A>
+int launch_frame_filterbank(const void* audio, const void* wt, void* out, int N,
+                            long long audio_len, int step, int K, int hop, int F,
+                            int n_frames, float eps, float scale,
+                            cudaStream_t stream) {
+  const size_t smem = sizeof(float) * tile_span(hop, K);
+  cudaError_t err = set_smem(frame_filterbank_logpower_kernel<A>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_frames + kTileFrames - 1) / kTileFrames, N);
+  const int half = (F + kColsPerThread - 1) / kColsPerThread;
+  const int threads =
+      round_up_threads(half * (kTileFrames / kFbFramesPerThread));
+  frame_filterbank_logpower_kernel<A><<<grid, threads, smem, stream>>>(
+      static_cast<const A*>(audio), static_cast<const float*>(wt),
+      static_cast<float*>(out), audio_len, step, K, hop, F, n_frames, eps, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (segments, weights and output alike).
@@ -279,4 +358,19 @@ extern "C" int bn_stft_melspec(int dtype, const void* seg, const void* bc,
   }
   return launch_stft<__nv_bfloat16>(seg, bc, bs, mel, out, N, S, flen, hop,
                                     bins, M, n_frames, eps, s);
+}
+
+// in_dtype: 0 = float32, 1 = int16 audio; weights and output are float32.
+extern "C" int bn_frame_filterbank_logpower(int in_dtype, const void* audio,
+                                            const void* wt, void* out, int N,
+                                            long long audio_len, int step, int K,
+                                            int hop, int F, int n_frames,
+                                            float eps, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype == 0) {
+    return launch_frame_filterbank<float>(audio, wt, out, N, audio_len, step, K, hop,
+                                          F, n_frames, eps, scale, s);
+  }
+  return launch_frame_filterbank<short>(audio, wt, out, N, audio_len, step, K, hop, F,
+                                        n_frames, eps, scale, s);
 }

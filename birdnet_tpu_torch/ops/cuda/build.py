@@ -29,7 +29,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
@@ -72,30 +72,38 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbirdnet_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with the output of the first that
+    fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        output, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{output}"
+    if failed is not None:
+        raise KernelBuildError(failed)
+
+
 def build() -> Path:
     """Compile the sources if their library is not built yet; return its
-    path. The compiler writes to a temporary name that is renamed into
-    place, so a concurrent or interrupted build never leaves a partial
-    library under the final name."""
+    path. Each source compiles in its own ``nvcc``, all started together;
+    then one ``nvcc`` links the objects. The link writes to a temporary
+    name that is renamed into place, so a concurrent or interrupted build
+    never leaves a partial library under the final name."""
     out = library_path()
     if out.exists():
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, f"{src.stem}.o") for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        tmp = os.path.join(work, out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return out
 
 
@@ -107,6 +115,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bn_stft_melspec.restype = i
     lib.bn_qconv1x1_requant.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
     lib.bn_qconv1x1_requant.restype = i
+    ints, ptrs = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
+    lib.bn_stage_stack_forward.argtypes = [i, i, i, ints, ptrs, p, p, p, p, p, p,
+                                           i, i, i, i, p]
+    lib.bn_stage_stack_forward.restype = i
+    lib.bn_frame_filterbank_logpower.argtypes = [i, p, p, p, i, ctypes.c_longlong,
+                                                 i, i, i, i, i, f, f, p]
+    lib.bn_frame_filterbank_logpower.restype = i
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,6 +1,6 @@
 """Fused audio frontends: hand-written CUDA kernels and their plain versions.
 
-Two kernels, in ``birdnet_tpu_torch/csrc/frontend.cu``:
+Three kernels, in ``birdnet_tpu_torch/csrc/frontend.cu``:
 
 - :func:`segments_filterbank_logpower` (B2) — the conv-form frontend:
   frames ``[T, K]`` of each segment times the filterbank, then
@@ -10,8 +10,15 @@ Two kernels, in ``birdnet_tpu_torch/csrc/frontend.cu``:
   DFT cut to the mel bank's nonzero bins, power, mel projection and
   ``log(x + eps)``. Replaces
   ``birdnet_tpu/ops/pallas/frontend.py::segments_stft_melspec``.
+- :func:`frame_filterbank_logpower` (B5) — the conv-form frontend over
+  ``n_segments`` windows at ``step`` of ONE 1-D float32 or int16 buffer,
+  the samples scaled in the kernel, float32 throughout, returning
+  ``[n, T, F]``: the JAX package's public function of that name, with its
+  signature. Replaces
+  ``birdnet_tpu/ops/pallas/frontend.py::frame_filterbank_logpower``; any
+  hop and step (the TPU's ``hop % 128`` rule is a Mosaic rule).
 
-Both take segments ``[N, S]`` in the compute dtype (float32 or bfloat16) and
+B1 and B2 take segments ``[N, S]`` in the compute dtype (float32 or bfloat16) and
 return ``[N, F|M, T]`` in that dtype, the mel-image orientation. They keep
 the TPU kernels' rounding points: the framed samples and the weights are in
 the compute dtype, products accumulate in float32, B1's power is rounded to
@@ -35,7 +42,8 @@ import torch
 
 from .build import check, load_library
 
-LAUNCHES = {"filterbank_logpower": 0, "stft_melspec": 0}
+LAUNCHES = {"filterbank_logpower": 0, "stft_melspec": 0,
+            "frame_filterbank_logpower": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -230,6 +238,90 @@ def segments_stft_melspec(segments: torch.Tensor, window, mel, *, hop: int,
     )
     check(status, "stft_melspec kernel")
     LAUNCHES["stft_melspec"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B5: the conv-form frontend over windows of one 1-D buffer
+# ---------------------------------------------------------------------------
+
+_AUDIO_CODES = {torch.float32: 0, torch.int16: 1}
+
+
+def _frame_geometry(audio: torch.Tensor, weights: torch.Tensor, n_segments: int,
+                    step: int, sample_count: int, hop: int):
+    """``(weights [F, K] float32, n_frames)``; raises as the JAX function
+    does when ``audio`` is too short for ``n_segments`` windows."""
+    if audio.ndim != 1 or audio.dtype not in _AUDIO_CODES:
+        raise TypeError(
+            f"audio must be 1-D float32 or int16, got {audio.dtype} "
+            f"{tuple(audio.shape)}"
+        )
+    weights = _filterbank(weights).float()
+    kernel_size = weights.shape[1]
+    n_frames = _n_frames(sample_count, kernel_size, hop)
+    rows = n_frames + -(-kernel_size // hop) - 1
+    need = (n_segments - 1) * step + rows * hop
+    if audio.shape[0] < need:
+        raise ValueError(
+            f"audio too short: need {need} samples for {n_segments} segments "
+            f"(have {audio.shape[0]}); pad before calling"
+        )
+    return weights, n_frames
+
+
+def frame_filterbank_logpower_plain(audio, weights, *, n_segments: int, step: int,
+                                    sample_count: int, hop: int, eps: float = 1e-6,
+                                    scale: float = 1.0 / 32768.0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`frame_filterbank_logpower`: ``unfold``
+    framing and a float32 matmul, TF32 off (process-wide, as the importer
+    sets it)."""
+    audio, weights = torch.as_tensor(audio), torch.as_tensor(weights)
+    weights, n_frames = _frame_geometry(audio, weights, n_segments, step,
+                                        sample_count, hop)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel_size = weights.shape[1]
+    span = (n_frames - 1) * hop + kernel_size
+    x = audio[:max(0, (n_segments - 1) * step) + span].float() * scale
+    frames = x.unfold(0, span, step)[:n_segments].unfold(1, kernel_size, hop)
+    y = torch.matmul(frames, weights.to(audio.device).t())  # [n, T, F]
+    return torch.log(y * y + eps)
+
+
+def frame_filterbank_logpower(audio, weights, *, n_segments: int, step: int,
+                              sample_count: int, hop: int, eps: float = 1e-6,
+                              scale: float = 1.0 / 32768.0) -> torch.Tensor:
+    """Fused frontend over ``n_segments`` overlapping windows of ``audio``.
+
+    ``audio``: 1-D float32 or int16; ``scale`` is applied to EVERY input
+    dtype (the default dequantizes int16; pass ``scale=1.0`` for audio
+    already in [-1, 1)). ``weights``: ``[F, K]`` or the Conv1d layout
+    ``[F, 1, K]``. Returns float32 ``[n_segments, T, F]`` log-power, where
+    ``T = (sample_count - K) // hop + 1``."""
+    audio, weights = torch.as_tensor(audio), torch.as_tensor(weights)
+    if audio.device.type == "cpu":
+        return frame_filterbank_logpower_plain(
+            audio, weights, n_segments=n_segments, step=step,
+            sample_count=sample_count, hop=hop, eps=eps, scale=scale)
+    weights, n_frames = _frame_geometry(audio, weights, n_segments, step,
+                                        sample_count, hop)
+    if audio.device.type != "cuda":
+        raise ValueError(f"frontend kernels run on CUDA tensors, got {audio.device}")
+    audio = audio.contiguous()
+    wt = weights.to(audio.device).t().contiguous()  # [K, F]
+    n_filters, kernel_size = weights.shape
+    out = torch.empty((n_segments, n_frames, n_filters), dtype=torch.float32,
+                      device=audio.device)
+    if n_segments == 0:
+        return out
+    lib = load_library()
+    status = lib.bn_frame_filterbank_logpower(
+        _AUDIO_CODES[audio.dtype], audio.data_ptr(), wt.data_ptr(), out.data_ptr(),
+        n_segments, audio.shape[0], step, kernel_size, hop, n_filters, n_frames,
+        float(eps), float(scale), torch.cuda.current_stream(audio.device).cuda_stream,
+    )
+    check(status, "frame_filterbank_logpower kernel")
+    LAUNCHES["frame_filterbank_logpower"] += 1
     return out
 
 

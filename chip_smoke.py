@@ -14,22 +14,38 @@ exits non-zero:
              float32, and in float32 against the f64 oracle; the int8 1x1
              conv + requantize kernel (B3) against its plain version at
              three shapes of the int8 v2.4 graph at batch 32 and in a case
-             whose output scale has an inexact float32 reciprocal; times
-             each kernel and its plain version with CUDA events.
+             whose output scale has an inexact float32 reciprocal; the
+             stage-prefix kernel (B4) at the full-width six-block geometry
+             on [32, 1, 96, 511] in bf16 with and without fast_act and in
+             float32; the framed-audio frontend (B5) on a 32-segment int16
+             buffer at step 144000 and 72000; times each kernel and its
+             plain version with CUDA events.
 4. slice   — generates full-width BirdNET v2.4 ONNX files (conv and STFT
              frontends, 6522 species, random weights from a seed), builds a
              Classifier on each at precision "fast", runs predict and
-             predict_batch(32), checks that the frontend kernel ran, and
-             compares the logits with the same file at "fp32".
-5. int8    — on the same files, builds int8 Classifiers (synthetic
+             predict_batch(32), checks that the frontend kernel and B4 ran,
+             and compares the logits with the same file at "fp32".
+5. stream  — on the same "fast" classifiers, analyze_samples over a seeded
+             one-hour int16 recording at overlap 0 and 1.5 s (the second
+             with a timeout, so 16-tile superchunks, two in flight), at the
+             default tile and at tile 32; checks that the frontend kernel
+             and B4 ran and that the streamed top-K equals predict_batch on
+             the same segments framed on the host, in batches of the tile
+             (the last zero-padded, as the stream pads it);
+             prints sustained segments/s at tile 32, 64 and 128, for int16
+             against float32 input, and BIRDNET_STAGE123_SPLIT=0 against
+             the default, each pair in turns.
+6. int8    — on the same files, builds int8 Classifiers (synthetic
              calibration) at "fast" (B1 or B2, and B3) and at "mixed" (B3),
              runs predict and predict_batch(32) and checks that the kernels
              ran; checks every node of the full-width int8 graph on the
              card against the same node on the CPU, and the int8 logits of
              a small v2.4 model against its fp32 logits.
 
-Before each of the two driven paths (slice, int8) every launch count is
-set to 0; the counts are read right after it.
+Before each of the three driven paths (slice, stream, int8) every launch
+count is set to 0; the counts are read right after it. B5, which the JAX
+package reaches only through its public function, counts its kernel
+phase's calls to that function.
 
 The line before the last is the kernels' summary; the last line is
 ``{"ok": true, "device": {...}}``. The script imports no JAX.
@@ -38,6 +54,7 @@ The line before the last is the kernels' summary; the last line is
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -48,7 +65,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from birdnet_tpu_torch import Classifier
+from birdnet_tpu_torch import Classifier, InferenceOptions, chunk_audio
 from birdnet_tpu_torch.compiler.importer import (
     consts_to_device,
     import_onnx,
@@ -66,6 +83,7 @@ from birdnet_tpu_torch.onnx import proto as P
 from birdnet_tpu_torch.ops.cuda import build
 from birdnet_tpu_torch.ops.cuda import frontend as fe
 from birdnet_tpu_torch.ops.cuda import qconv as qc
+from birdnet_tpu_torch.ops.cuda import stage_prefix as spx
 
 N_SEG, S, HOP, FLEN, N_MELS = 32, 144_000, 280, 1024, 96
 SEED = 0
@@ -74,12 +92,16 @@ SOURCES = {
     "stft_melspec": "birdnet_tpu_torch/csrc/frontend.cu",
     "filterbank_logpower": "birdnet_tpu_torch/csrc/frontend.cu",
     "qconv1x1_requant": "birdnet_tpu_torch/csrc/qconv.cu",
+    "stage_stack_forward": "birdnet_tpu_torch/csrc/stage_prefix.cu",
+    "frame_filterbank_logpower": "birdnet_tpu_torch/csrc/frontend.cu",
 }
 # The TPU kernels these replace (the wrappers that reach pl.pallas_call).
 REPLACES = {
     "stft_melspec": "birdnet_tpu/ops/pallas/frontend.py:463",
     "filterbank_logpower": "birdnet_tpu/ops/pallas/frontend.py:334",
     "qconv1x1_requant": "birdnet_tpu/ops/pallas/qconv.py:91",
+    "stage_stack_forward": "birdnet_tpu/ops/pallas/stage123.py:255",
+    "frame_filterbank_logpower": "birdnet_tpu/ops/pallas/frontend.py:194",
 }
 # B3 at batch 32: (C_in, C_out, N = H*W, activation), 1x1 convs of the int8
 # v2.4 graph; the first is the one the kernels line reports.
@@ -107,15 +129,32 @@ SMALL = dict(width=0.1, depth=1)
 # share of their largest magnitude (fp32 sums in another order; under
 # mixed/fast about two bf16 ulps).
 FLOAT_NODE_TOL = {"fp32": 1e-4, "mixed": 2 ** -6, "fast": 2 ** -6}
+# B4 against its plain version, max |Δ| over the largest magnitude: float32
+# sums in another order; in bf16 a rounding flipped by that order, carried
+# through six blocks. Measured on the H100 at this geometry: 1.4e-7 and
+# 0.0041 (one bf16 ulp); the bounds keep a margin of 70 and 4.
+PREFIX_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6}
+# The full-width v2.4 stage prefix: (c_in, c_mid, c_se, c_out, stride,
+# residual) per block.
+PREFIX_BLOCKS = [
+    (32, 32, 8, 24, 1, False), (24, 24, 6, 24, 1, True), (24, 96, 24, 40, 2, False),
+    (40, 160, 40, 40, 1, True), (40, 160, 40, 80, 2, False), (80, 320, 80, 80, 1, True),
+]
+# The stream phase: one hour of 48 kHz audio; streamed against predict_batch
+# at tile 32, confidences within this, and equal top-1 wherever the top-1
+# and top-2 confidences differ by more than it.
+HOUR = 3600 * 48_000
+STREAM_CONF_TOL = 1e-3
 
 
 def reset_launches() -> None:
     fe.reset_launches()
     qc.reset_launches()
+    spx.reset_launches()
 
 
 def read_launches() -> dict:
-    return {**fe.LAUNCHES, **qc.LAUNCHES}
+    return {**fe.LAUNCHES, **qc.LAUNCHES, **spx.LAUNCHES}
 
 
 def emit(obj) -> None:
@@ -147,6 +186,13 @@ def time_ms(fn, reps: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_vs_plain_ms(run, plain) -> tuple:
+    """(kernel ms, plain ms), CUDA events in turns kernel, plain, plain,
+    kernel."""
+    k1, p1, p2, k2 = time_ms(run), time_ms(plain), time_ms(plain), time_ms(run)
+    return (k1 + k2) / 2, (p1 + p2) / 2
 
 
 def phase_device() -> tuple:
@@ -212,12 +258,7 @@ def phase_kernels(dev) -> dict:
                 ref = torch.from_numpy(oracle(audio[:2].cpu().numpy()))
                 oerr, ook = within(got[:2].cpu(), ref, dtype)
                 line.update(max_abs_err_vs_f64_oracle=oerr, ok=ok and ook)
-            # Turns: kernel, plain, plain, kernel.
-            k1 = time_ms(lambda: kernel(x))
-            p1 = time_ms(lambda: plain(x))
-            p2 = time_ms(lambda: plain(x))
-            k2 = time_ms(lambda: kernel(x))
-            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            ms, plain_ms = kernel_vs_plain_ms(lambda: kernel(x), lambda: plain(x))
             line.update(ms=ms, plain_ms=plain_ms,
                         us_per_segment=1e3 * ms / N_SEG,
                         plain_us_per_segment=1e3 * plain_ms / N_SEG)
@@ -227,6 +268,94 @@ def phase_kernels(dev) -> dict:
             if dtype == torch.bfloat16:  # the dtype the main path runs
                 summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
     summary["qconv1x1_requant"] = phase_qconv(dev)
+    summary["stage_stack_forward"] = phase_stage_prefix(dev)
+    summary["frame_filterbank_logpower"] = phase_frame_filterbank(dev, weights)
+    return summary
+
+
+def phase_stage_prefix(dev) -> dict:
+    """B4 at the full-width six-block geometry on [32, 1, 96, 511], seeded
+    random weights: bf16 with fast_act (the fast lowering), bf16 without it
+    (bf16), and float32, each against its plain version. Returns the
+    kernels-line summary (the fast lowering's case)."""
+    rng = np.random.default_rng(SEED + 4)
+    f = lambda *shape, s=1.0: (rng.normal(size=shape) * s).astype(np.float32)
+    bws = [dict(w1=f(m, i, s=1.5 / np.sqrt(i)), b1=f(m, s=0.05), wd=f(m, 1, 3, 3, s=0.3),
+                bd=f(m, s=0.05), se1=f(e, m, s=1 / np.sqrt(m)), bse1=f(e, s=0.05),
+                se2=f(m, e, s=1 / np.sqrt(e)), bse2=f(m, s=0.05), w3=f(o, m, s=1 / np.sqrt(m)),
+                b3=f(o, s=0.05))
+           for i, m, e, o, _, _ in PREFIX_BLOCKS]
+    stem_w, stem_b = f(32, 1, 3, 3, s=0.4), f(32, s=0.05)
+    blocks = [spx.BlockGeom(*g) for g in PREFIX_BLOCKS]
+    img = torch.from_numpy(f(N_SEG, 1, N_MELS, 511, s=0.5)).to(dev)
+    summary = None
+    for dtype, fast_act in ((torch.bfloat16, True), (torch.bfloat16, False),
+                            (torch.float32, False)):
+        tables = spx.prepare_weights(stem_w, stem_b, bws, blocks, dtype, dev)
+        x = img.to(dtype)
+        run = lambda: spx.stage_stack_forward(x, tables, fast_act)
+        plain = lambda: spx.stage_stack_forward_plain(x, tables, fast_act)
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.shape != (N_SEG, 80, 12, 64) or got.dtype != dtype:
+            raise AssertionError(f"stage_stack_forward: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+        err = float((got.float() - want.float()).abs().max())
+        scaled = err / float(want.float().abs().max())
+        dname = str(dtype).split(".")[1]
+        ok = scaled <= PREFIX_TOL[dname] and bool(torch.isfinite(got).all())
+        ms, plain_ms = kernel_vs_plain_ms(run, plain)
+        line = {"phase": "kernel", "name": "stage_stack_forward", "dtype": dname,
+                "fast_act": fast_act, "shape": [N_SEG, 1, N_MELS, 511],
+                "max_abs_err_vs_plain": err, "scaled_err_vs_plain": scaled,
+                "bound": PREFIX_TOL[dname], "ms": ms, "plain_ms": plain_ms,
+                "us_per_segment": 1e3 * ms / N_SEG,
+                "plain_us_per_segment": 1e3 * plain_ms / N_SEG, "ok": ok}
+        emit(line)
+        if not ok:
+            raise AssertionError(f"stage_stack_forward disagrees with its plain version: {line}")
+        if summary is None:
+            summary = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return summary
+
+
+def phase_frame_filterbank(dev, weights) -> dict:
+    """B5 through its public function on a 32-segment int16 buffer at step
+    144000 and 72000 (hop 280, K 1024, F 96) against its plain version.
+    Its launches are the two compared calls. Returns the kernels-line
+    summary (step 144000, the largest error of both)."""
+    rng = np.random.default_rng(SEED + 5)
+    w = weights[:, 0, :]
+    summary, worst = None, 0.0
+    fe.LAUNCHES["frame_filterbank_logpower"] = 0
+    for step in (S, S // 2):
+        pcm = (rng.normal(size=(N_SEG - 1) * step + S) * 3000).clip(-32768, 32767)
+        audio = torch.from_numpy(pcm.astype(np.int16)).to(dev)
+        kw = dict(n_segments=N_SEG, step=step, sample_count=S, hop=HOP)
+        got = fe.frame_filterbank_logpower(audio, w, **kw)
+        torch.cuda.synchronize()
+        want = fe.frame_filterbank_logpower_plain(audio, w, **kw)
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.shape != (N_SEG, 511, N_MELS):
+            raise AssertionError(f"frame_filterbank_logpower: shape {tuple(got.shape)}")
+        err, ok = within(got, want, torch.float32)
+        worst = max(worst, err)
+        launches = fe.LAUNCHES["frame_filterbank_logpower"]
+        ms, plain_ms = kernel_vs_plain_ms(
+            lambda: fe.frame_filterbank_logpower(audio, w, **kw),
+            lambda: fe.frame_filterbank_logpower_plain(audio, w, **kw))
+        fe.LAUNCHES["frame_filterbank_logpower"] = launches
+        line = {"phase": "kernel", "name": "frame_filterbank_logpower", "audio": "int16",
+                "step": step, "max_abs_err_vs_plain": err, "ms": ms, "plain_ms": plain_ms,
+                "us_per_segment": 1e3 * ms / N_SEG,
+                "plain_us_per_segment": 1e3 * plain_ms / N_SEG, "ok": ok}
+        emit(line)
+        if not ok:
+            raise AssertionError(f"frame_filterbank_logpower disagrees with its plain version: {line}")
+        if summary is None:
+            summary = {"ms": ms, "plain_ms": plain_ms}
+    summary["max_abs_err"] = worst
     return summary
 
 
@@ -289,8 +418,7 @@ def phase_qconv(dev) -> dict:
             flips = int((torch.round(v * recip).clamp(-128, 127).to(torch.int8) != want).sum())
             line["reciprocal_multiply_would_flip"] = flips
             ok = ok and flips > 0
-        k1, p1, p2, k2 = time_ms(run), time_ms(plain), time_ms(plain), time_ms(run)
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        ms, plain_ms = kernel_vs_plain_ms(run, plain)
         line.update(ms=ms, plain_ms=plain_ms, us_per_image=1e3 * ms / N_SEG,
                     plain_us_per_image=1e3 * plain_ms / N_SEG, ok=ok)
         emit(line)
@@ -331,13 +459,15 @@ def phase_slice(card: str, segs: np.ndarray, paths: dict) -> tuple:
     # The main path's run: every count starts at 0 here.
     reset_launches()
     for frontend, counter in FRONTEND_KERNEL.items():
-        before = fe.LAUNCHES[counter]
+        before = read_launches()
         clf = (Classifier.builder().model_path(paths[frontend]).labels(LABELS)
                .precision("fast").top_k(5).build())
         one = clf.predict(segs[0])
         batch = clf.predict_batch(segs)
-        if fe.LAUNCHES[counter] <= before:
-            raise AssertionError(f"{frontend}: the {counter} kernel never ran")
+        after = read_launches()
+        for kname in (counter, "stage_stack_forward"):
+            if after[kname] <= before[kname]:
+                raise AssertionError(f"{frontend}: the {kname} kernel never ran")
         fast[frontend] = (clf, one, batch)
     launches = read_launches()
 
@@ -369,6 +499,128 @@ def phase_slice(card: str, segs: np.ndarray, paths: dict) -> tuple:
         if not line["ok"]:
             raise AssertionError(f"{frontend}: fast disagrees with fp32: {line}")
     return launches, ref_logits_of, {f: c for f, (c, _, _) in fast.items()}
+
+
+def streamed(clf, pcm, overlap: float, options=None) -> tuple:
+    """(conf [N, K], idx [N, K], seconds) of analyze_samples."""
+    t0 = time.perf_counter()
+    out = clf.analyze_samples(pcm, overlap_seconds=overlap, options=options)
+    seconds = time.perf_counter() - t0
+    conf = np.array([[p.confidence for p in preds] for _, preds in out], np.float32)
+    idx = np.array([[p.index for p in preds] for _, preds in out], np.int64)
+    return conf, idx, seconds
+
+
+def stream_rate(clf, pcm) -> float:
+    """Sustained segments/s of one analyze_samples over the recording
+    (host clock; it ends with the results on the host)."""
+    conf, _, seconds = streamed(clf, pcm, 0.0)
+    return conf.shape[0] / seconds
+
+
+def with_split_zero(fn):
+    """``fn()`` with ``BIRDNET_STAGE123_SPLIT=0``: the stage prefix runs
+    eagerly, without B4."""
+    os.environ["BIRDNET_STAGE123_SPLIT"] = "0"
+    try:
+        return fn()
+    finally:
+        os.environ.pop("BIRDNET_STAGE123_SPLIT", None)
+
+
+def phase_stream(card: str, fast: dict) -> dict:
+    """Streaming on the full-width ``fast`` classifiers over one hour of
+    seeded int16 audio, at the engine's default tile and at tile 32.
+    Returns its launch counts.
+
+    What decides that its output is right: the streamed top-K against
+    predict_batch on the same segments, framed on the host and scaled as
+    the device scales int16 (× 1/32768), in batches of the stream's tile."""
+    pcm = (np.random.default_rng(SEED + 6).standard_normal(HOUR, dtype=np.float32) * 3000
+           ).clip(-32768, 32767).astype(np.int16)
+    audio_f32 = pcm.astype(np.float32) / 32768.0
+    default_tile = next(iter(fast.values()))._streaming_engine().tile
+    check_tiles = tuple(dict.fromkeys((default_tile, 32)))
+    # The main path's run: every count starts at 0 here.
+    reset_launches()
+    runs = {}
+    for frontend, counter in FRONTEND_KERNEL.items():
+        before = read_launches()
+        eng = fast[frontend]._streaming_engine()
+        for tile in check_tiles:
+            eng.tile = tile
+            runs[frontend, tile, 0.0] = streamed(fast[frontend], pcm, 0.0)
+            # A timeout makes the run monitored: 16-tile superchunks, two in
+            # flight.
+            runs[frontend, tile, 1.5] = streamed(fast[frontend], pcm, 1.5,
+                                                 InferenceOptions(timeout=600.0))
+        eng.tile = default_tile
+        after = read_launches()
+        for kname in (counter, "stage_stack_forward"):
+            if after[kname] <= before[kname]:
+                raise AssertionError(f"stream {frontend}: the {kname} kernel never ran")
+    launches = read_launches()
+
+    for (frontend, tile, overlap), (conf, idx, seconds) in runs.items():
+        clf = fast[frontend]
+        segs, _ = chunk_audio(audio_f32, S, overlap, 48_000)
+        ref_conf, ref_idx = [], []
+        for i in range(0, segs.shape[0], tile):
+            # The stream zero-pads its last tile; so does the reference, so
+            # that both run the same batch shapes (cuBLAS may pick another
+            # kernel, and sum in another order, for another batch size).
+            batch = segs[i:i + tile]
+            n = batch.shape[0]
+            batch = np.concatenate([batch, np.zeros((tile - n, S), np.float32)])
+            for r in clf.predict_batch(batch)[:n]:
+                ref_conf.append([p.confidence for p in r.predictions])
+                ref_idx.append([p.index for p in r.predictions])
+        ref_conf, ref_idx = np.array(ref_conf, np.float32), np.array(ref_idx)
+        if conf.shape != ref_conf.shape or not np.isfinite(conf).all():
+            raise AssertionError(f"stream {frontend} {overlap}: {conf.shape} vs {ref_conf.shape}")
+        conf_diff = float(np.abs(conf - ref_conf).max())
+        clear = ref_conf[:, 0] - ref_conf[:, 1] > STREAM_CONF_TOL
+        top1_clear = int((idx[clear, 0] == ref_idx[clear, 0]).sum())
+        line = {"phase": "stream", "frontend": frontend, "overlap_s": overlap,
+                "segments": int(conf.shape[0]), "card": card, "tile": tile,
+                "monitored": overlap > 0, "seconds": seconds,
+                "seg_per_s": conf.shape[0] / seconds,
+                "max_conf_diff_vs_predict_batch": conf_diff,
+                "top1_equal_where_clear": f"{top1_clear}/{int(clear.sum())}",
+                "top1_equal_all": int((idx[:, 0] == ref_idx[:, 0]).sum()),
+                "ok": conf_diff <= STREAM_CONF_TOL and top1_clear == int(clear.sum())}
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"stream {frontend} {overlap} disagrees with predict_batch: {line}")
+
+    for frontend, clf in fast.items():
+        eng = clf._streaming_engine()
+        # One untimed call per setting first: tile 64 has not run yet, the
+        # first float32 call sizes a pinned buffer twice as large, and the
+        # first split-0 call loads the eager prefix's kernels.
+        eng.tile = 64
+        stream_rate(clf, pcm)
+        eng.tile = default_tile
+        stream_rate(clf, audio_f32)
+        with_split_zero(lambda: stream_rate(clf, pcm))
+        # In turns, so that the host clock's drift falls on both sides.
+        tiles = {}
+        for tile in (32, 64, 128, 128, 64, 32):
+            eng.tile = tile
+            tiles.setdefault(tile, []).append(stream_rate(clf, pcm))
+        eng.tile = default_tile
+        inputs = {"int16": [], "float32": []}
+        for name in ("int16", "float32", "float32", "int16"):
+            inputs[name].append(stream_rate(clf, pcm if name == "int16" else audio_f32))
+        split = {"default": [], "0": []}
+        for name in ("default", "0", "0", "default"):
+            split[name].append(with_split_zero(lambda: stream_rate(clf, pcm)) if name == "0"
+                               else stream_rate(clf, pcm))
+        emit({"phase": "stream_rates", "frontend": frontend, "card": card,
+              "segments": HOUR // S, "default_tile": default_tile,
+              "seg_per_s_by_tile": tiles, "seg_per_s_by_input": inputs,
+              "seg_per_s_by_split": split})
+    return launches
 
 
 def int8_agreement(ref: np.ndarray, logits: np.ndarray) -> dict:
@@ -519,6 +771,7 @@ def main() -> int:
     name, smi = phase_device()
     phase_build()
     summary = phase_kernels(CARD)
+    b5_launches = fe.LAUNCHES["frame_filterbank_logpower"]
     rng = np.random.default_rng(SEED + 1)
     segs = (rng.normal(size=(N_SEG, S)) * 0.1).astype(np.float32)
     with tempfile.TemporaryDirectory() as tmp:
@@ -531,12 +784,16 @@ def main() -> int:
             P.save_model(birdnet_v24.build_model(seed=SEED, frontend=frontend, **SMALL),
                          tiny_paths[frontend])
         float_launches, ref_logits_of, float_fast = phase_slice(smi, segs, paths)
+        stream_launches = phase_stream(smi, float_fast)
         int8_launches = phase_int8(smi, segs, paths, tiny_paths, ref_logits_of, float_fast)
-    launches = {k: float_launches[k] + int8_launches[k] for k in float_launches}
+    # Each kernel's launches on its paths; B5's from its kernel phase.
+    launches = {k: float_launches[k] + stream_launches[k] + int8_launches[k]
+                for k in float_launches}
+    launches["frame_filterbank_logpower"] = b5_launches
     kernels = []
     for kname, s in summary.items():
         if launches[kname] <= 0:
-            raise AssertionError(f"{kname} was not launched on the main path")
+            raise AssertionError(f"{kname} was not launched on any of its paths")
         kernels.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
                         "replaces": REPLACES[kname], "launches": launches[kname],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],

@@ -70,10 +70,11 @@ def test_fp32_forward_matches_jax(model_paths, audio, name):
 
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_fast_forward_matches_jax_kernel(model_paths, audio, name, monkeypatch):
-    """fast: the port's plain frontend against the JAX package's Pallas
-    kernel in interpret mode, scaled max |Δ| < 5e-2 (the bound of
-    tests/test_fuse_stft_frontend.py for the same policy)."""
+    """fast: the port's plain frontend and stage prefix against the JAX
+    package's Pallas kernels in interpret mode, scaled max |Δ| < 5e-2 (the
+    bound of tests/test_fuse_stft_frontend.py for the same policy)."""
     monkeypatch.setenv("BIRDNET_FRONTEND_INTERPRET", "1")
+    monkeypatch.setenv("BIRDNET_STAGE123_INTERPRET", "1")
     got, want = _forwards(model_paths[name], "fast")(audio[:2])
     assert np.all(np.isfinite(got))
     assert np.abs(got - want).max() / np.abs(want).max() < 5e-2
@@ -171,8 +172,10 @@ def test_unported_surface_says_so(model_paths):
     builder = tbt.Classifier.builder()
     assert builder.int8() is builder  # int8 is ported (ROADMAP A8)
     mine, _ = _classifiers(model_paths["tiny-conv"])
-    with pytest.raises(NotImplementedError, match="A4"):
-        mine.analyze_samples(np.zeros(144000, np.float32))
+    with pytest.raises(NotImplementedError, match="A3"):
+        mine.create_batch_context(4)
+    # Streaming is ported (ROADMAP A4): one silent segment, one result.
+    assert len(mine.analyze_samples(np.zeros(144000, np.float32))) == 1
 
 
 @pytest.mark.parametrize("masked", [False, True])

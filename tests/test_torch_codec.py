@@ -28,7 +28,7 @@ REPO = Path(__file__).resolve().parents[1]
 COPIES = [
     "errors.py", "types.py", "_demux.py", "inference_options.py",
     "detection.py", "postprocess.py", "labels.py",
-    "utils/__init__.py", "utils/export.py",
+    "utils/__init__.py", "utils/export.py", "utils/audio_io.py",
     "compiler/optimize.py", "compiler/fuse_mbconv.py",
     "compiler/fuse_stage_prefix.py", "compiler/fuse_frontend.py",
     "compiler/_melbank.py",

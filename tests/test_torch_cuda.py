@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each kernel against its plain
-PyTorch version at the main path's geometry, and the classifier's ``fast``
-and int8 paths through them. Marked ``cuda``; every test skips where
+PyTorch version at the main path's geometry, and the classifier's ``fast``,
+int8 and streaming paths through them. Marked ``cuda``; every test skips where
 ``torch.cuda.is_available()`` is false. On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 from birdnet_tpu_torch.compiler._melbank import mel_weight_matrix  # noqa: E402
 from birdnet_tpu_torch.ops.cuda import frontend as fe  # noqa: E402
 from birdnet_tpu_torch.ops.cuda import qconv as qc  # noqa: E402
+from birdnet_tpu_torch.ops.cuda import stage_prefix as sp  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -31,6 +32,7 @@ def dev():
     torch.backends.cudnn.allow_tf32 = False
     fe.reset_launches()
     qc.reset_launches()
+    sp.reset_launches()
     return torch.device("cuda", 0)
 
 
@@ -169,3 +171,98 @@ def test_classifier_int8_runs_b3(dev, tmp_path, frontend, counter, policy):
     assert fe.LAUNCHES[counter] == (1 if policy == "fast" else 0)
     for r in results:
         assert r.raw_scores.shape == (10,) and np.all(np.isfinite(r.raw_scores))
+
+
+# The full-width v2.4 stage prefix: (c_in, c_mid, c_se, c_out, stride, residual).
+FULL_BLOCKS = [
+    (32, 32, 8, 24, 1, False), (24, 24, 6, 24, 1, True), (24, 96, 24, 40, 2, False),
+    (40, 160, 40, 40, 1, True), (40, 160, 40, 80, 2, False), (80, 320, 80, 80, 1, True),
+]
+
+
+def _prefix_tables(dev, dtype):
+    rng = np.random.default_rng(3)
+    f = lambda *shape, s=1.0: (rng.normal(size=shape) * s).astype(np.float32)
+    bws = [dict(w1=f(m, i, s=1.5 / np.sqrt(i)), b1=f(m, s=0.05), wd=f(m, 1, 3, 3, s=0.3),
+                bd=f(m, s=0.05), se1=f(e, m, s=1 / np.sqrt(m)), bse1=f(e, s=0.05),
+                se2=f(m, e, s=1 / np.sqrt(e)), bse2=f(m, s=0.05), w3=f(o, m, s=1 / np.sqrt(m)),
+                b3=f(o, s=0.05))
+           for i, m, e, o, _, _ in FULL_BLOCKS]
+    return sp.prepare_weights(f(32, 1, 3, 3, s=0.4), f(32, s=0.05), bws,
+                              [sp.BlockGeom(*g) for g in FULL_BLOCKS], dtype, dev)
+
+
+@pytest.mark.parametrize("dtype,fast_act", [
+    (torch.bfloat16, True), (torch.bfloat16, False), (torch.float32, False),
+])
+def test_stage_stack_forward_kernel_matches_plain(dev, dtype, fast_act):
+    """B4 at the full-width six-block prefix: float32 within 1e-5 of the
+    largest magnitude (sum order), bf16 within 2^-6 of it (a bf16 rounding
+    flipped by sum order, carried through six blocks); chip_smoke.py's
+    bounds, which its measurement allowed."""
+    tables = _prefix_tables(dev, dtype)
+    img = torch.from_numpy((np.random.default_rng(4).normal(size=(4, 1, 96, 511)) * 0.5)
+                           .astype(np.float32)).to(dev).to(dtype)
+    got = sp.stage_stack_forward(img, tables, fast_act)
+    torch.cuda.synchronize()
+    assert sp.LAUNCHES["stage_stack_forward"] == 1
+    want = sp.stage_stack_forward_plain(img, tables, fast_act)
+    assert got.shape == want.shape == (4, 80, 12, 64) and got.dtype == dtype
+    scaled = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    assert scaled <= (1e-5 if dtype == torch.float32 else 2 ** -6)
+
+
+@pytest.mark.parametrize("audio_dtype", [torch.int16, torch.float32])
+@pytest.mark.parametrize("step", [S, S // 2])
+def test_frame_filterbank_logpower_kernel_matches_plain(dev, audio_dtype, step):
+    rng = np.random.default_rng(5)
+    n = 4
+    x = rng.normal(size=(n - 1) * step + S) * 0.1
+    audio = torch.from_numpy((x * 32768).astype(np.int16) if audio_dtype == torch.int16
+                             else x.astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.normal(size=(M, FLEN)) * 0.02).astype(np.float32)).to(dev)
+    kw = dict(n_segments=n, step=step, sample_count=S, hop=HOP,
+              scale=1 / 32768 if audio_dtype == torch.int16 else 1.0)
+    got = fe.frame_filterbank_logpower(audio, w, **kw)
+    torch.cuda.synchronize()
+    assert fe.LAUNCHES["frame_filterbank_logpower"] == 1
+    want = fe.frame_filterbank_logpower_plain(audio, w, **kw)
+    assert got.shape == want.shape == (n, 511, M) and got.dtype == torch.float32
+    assert _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("frontend,counter", [
+    ("conv", "filterbank_logpower"), ("stft", "stft_melspec"),
+])
+def test_classifier_streams_on_the_card(dev, tmp_path, frontend, counter):
+    """One 30 s recording with 1.5 s overlap streamed at ``fast`` through
+    the frontend kernel and B4: the same top-K as predict_batch on the same
+    segments, confidences within 1e-3."""
+    from birdnet_tpu_torch import Classifier, chunk_audio
+    from birdnet_tpu_torch.models import birdnet_v24
+    from birdnet_tpu_torch.onnx import proto as P
+
+    path = tmp_path / f"v24_{frontend}.onnx"
+    P.save_model(birdnet_v24.build_model(num_species=10, width=0.1, depth=1,
+                                         frontend=frontend), str(path))
+    clf = (Classifier.builder().model_path(path).labels([f"s{i}" for i in range(10)])
+           .precision("fast").top_k(3).build())
+    rng = np.random.default_rng(6)
+    pcm = (rng.normal(size=30 * 48_000) * 3000).clip(-32768, 32767).astype(np.int16)
+    fe.reset_launches()
+    sp.reset_launches()
+    stream = clf.analyze_samples(pcm, overlap_seconds=1.5)
+    assert fe.LAUNCHES[counter] > 0 and sp.LAUNCHES["stage_stack_forward"] > 0
+    segs, times = chunk_audio(pcm.astype(np.float32) / 32768.0, 144_000, 1.5, 48_000)
+    # One tile, zero-padded as the stream pads it: the same batch shape.
+    tile = clf._streaming_engine().tile
+    batch = clf.predict_batch(np.concatenate(
+        [segs, np.zeros((tile - len(segs), segs.shape[1]), np.float32)]))[:len(segs)]
+    assert len(stream) == len(batch) == 20
+    for (t, preds), t_ref, ref in zip(stream, times, batch):
+        assert t == pytest.approx(t_ref)
+        got = np.array([p.confidence for p in preds])
+        want = np.array([p.confidence for p in ref.predictions])
+        assert np.abs(got - want).max() <= 1e-3
+        if want[0] - want[1] > 1e-3:
+            assert preds[0].index == ref.predictions[0].index

@@ -1,7 +1,8 @@
 """The port's frontend module (birdnet_tpu_torch/ops/cuda/frontend.py) on
-the CPU: the plain versions of kernels B1 (STFT → mel) and B2 (filterbank
-log-power) against the JAX package's Pallas kernels run in interpret mode
-and against the f64 numpy oracles. The CUDA kernels themselves run only on
+the CPU: the plain versions of kernels B1 (STFT → mel), B2 (filterbank
+log-power) and B5 (filterbank log-power over windows of one buffer) against
+the JAX package's Pallas kernels run in interpret mode and against the f64
+numpy oracles. The CUDA kernels themselves run only on
 the card (tests/test_torch_cuda.py and chip_smoke.py)."""
 
 import numpy as np
@@ -68,9 +69,9 @@ def _as_f32(x):
 def _zero_launches():
     tfe.reset_launches()
     yield
-    assert tfe.LAUNCHES == {"filterbank_logpower": 0, "stft_melspec": 0}, (
-        "a CPU tensor must take the plain version, never the kernel"
-    )
+    assert tfe.LAUNCHES == dict.fromkeys(
+        ("filterbank_logpower", "stft_melspec", "frame_filterbank_logpower"), 0
+    ), "a CPU tensor must take the plain version, never the kernel"
 
 
 @pytest.mark.parametrize("S,hop,flen,M,N", GEOMETRIES)
@@ -188,3 +189,93 @@ def test_library_name_tracks_sources_and_flags(monkeypatch):
     assert first.parent == build.BUILD_DIR
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
     assert build.library_path() != first
+
+
+@pytest.mark.parametrize("failing", [None, "stage_prefix.cu"])
+def test_build_runs_one_nvcc_per_source_then_links(monkeypatch, tmp_path, failing):
+    """A stand-in nvcc logs its calls: one compile per source, then one
+    link into the hashed library name; a failing source raises with its
+    command and leaves no library."""
+    log = tmp_path / "calls.txt"
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> "{log}"\n'
+        f'case "$*" in *"{failing or "-no-such-source-"}"*) echo broken; exit 2;; esac\n'
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && : > "$2"; shift; done\n'
+    )
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    sources = build._sources()
+    if failing:
+        with pytest.raises(build.KernelBuildError, match="nvcc failed.*stage_prefix.cu"):
+            build.build()
+        assert not build.library_path().exists()
+        return
+    assert build.build() == build.library_path() and build.library_path().exists()
+    calls = log.read_text().splitlines()
+    assert len(calls) == len(sources) + 1
+    assert sorted(c.split()[-1] for c in calls[:-1]) == sorted(map(str, sources))
+    assert all(" -c " in c for c in calls[:-1]) and " -shared " in calls[-1]
+
+
+# B5 on the cases of tests/test_pallas_frontend.py, against the JAX function
+# in interpret mode; its bound, 1e-3 rel/abs (float32 sums in another order).
+@pytest.mark.parametrize("S,hop,K,F,step,n_seg", [
+    pytest.param(4000, 280, 1024, 96, 3000, 4, id="overlapping"),
+    pytest.param(4000, 280, 1024, 96, 4000, 3, id="zero-overlap"),
+    pytest.param(2048, 128, 512, 64, 1024, 5, id="aligned-hop"),
+])
+def test_frame_filterbank_logpower_f32(S, hop, K, F, step, n_seg):
+    rng = np.random.default_rng(S + step)
+    audio = rng.normal(size=(n_seg - 1) * step + S + 2 * hop).astype(np.float32)
+    w = (rng.normal(size=(F, K)) * 0.02).astype(np.float32)
+    kw = dict(n_segments=n_seg, step=step, sample_count=S, hop=hop, scale=1.0)
+    got = tfe.frame_filterbank_logpower(torch.from_numpy(audio), torch.from_numpy(w), **kw)
+    want = np.asarray(jfe.frame_filterbank_logpower(audio, w, interpret=True, **kw))
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(got.numpy(), jfe.frontend_reference(audio, w, **kw),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_frame_filterbank_logpower_int16_dequant():
+    S, hop, K, F, step, n_seg = 4000, 280, 1024, 96, 3000, 3
+    rng = np.random.default_rng(3)
+    audio = rng.normal(size=(n_seg - 1) * step + S + 2 * hop)
+    i16 = (np.clip(audio, -1, 0.999) * 32768).astype(np.int16)
+    w = (rng.normal(size=(F, K)) * 0.02).astype(np.float32)
+    kw = dict(n_segments=n_seg, step=step, sample_count=S, hop=hop)
+    got = tfe.frame_filterbank_logpower(torch.from_numpy(i16), torch.from_numpy(w), **kw)
+    want = np.asarray(jfe.frame_filterbank_logpower(i16, w, interpret=True, **kw))
+    np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_frame_filterbank_logpower_conv_weight_layout():
+    """[F, 1, K] Conv1d weights give what [F, K] gives."""
+    S, hop, K, F, step, n_seg = 2048, 128, 512, 64, 2048, 2
+    rng = np.random.default_rng(4)
+    audio = rng.normal(size=n_seg * S + 2 * hop).astype(np.float32)
+    w3 = (rng.normal(size=(F, 1, K)) * 0.02).astype(np.float32)
+    kw = dict(n_segments=n_seg, step=step, sample_count=S, hop=hop, scale=1.0)
+    got = tfe.frame_filterbank_logpower(torch.from_numpy(audio), torch.from_numpy(w3), **kw)
+    want = np.asarray(jfe.frame_filterbank_logpower(audio, w3, interpret=True, **kw))
+    np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+    flat = tfe.frame_filterbank_logpower(torch.from_numpy(audio),
+                                         torch.from_numpy(w3[:, 0]), **kw)
+    np.testing.assert_array_equal(got.numpy(), flat.numpy())
+
+
+def test_frame_filterbank_logpower_rejects_short_audio():
+    kw = dict(n_segments=2, step=100, sample_count=128, hop=32)
+    with pytest.raises(ValueError, match="too short"):
+        tfe.frame_filterbank_logpower(torch.zeros(100), torch.zeros(8, 64), **kw)
+    with pytest.raises(ValueError):
+        jfe.frame_filterbank_logpower(np.zeros(100, np.float32),
+                                      np.zeros((8, 64), np.float32),
+                                      interpret=True, **kw)
+    with pytest.raises(TypeError):
+        tfe.frame_filterbank_logpower(torch.zeros(1000, dtype=torch.float64),
+                                      torch.zeros(8, 64), **kw)
