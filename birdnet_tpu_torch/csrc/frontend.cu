@@ -3,32 +3,71 @@
 // conv-form frontend over overlapping windows of one 1-D buffer (B5).
 //
 // Replaces the Pallas TPU kernels in birdnet_tpu/ops/pallas/frontend.py:
-//   - filterbank_logpower_kernel replaces segments_filterbank_logpower
-//     (_kernel_prefolded -> _filterbank_body, _assemble_patch);
-//   - stft_melspec_kernel replaces segments_stft_melspec
-//     (_kernel_stft_prefolded);
+//   - filterbank_logpower_mma_kernel (bf16) and filterbank_logpower_kernel
+//     (f32) replace segments_filterbank_logpower (_kernel_prefolded ->
+//     _filterbank_body, _assemble_patch);
+//   - stft_melspec_mma_kernel (bf16) and stft_melspec_kernel (f32) replace
+//     segments_stft_melspec (_kernel_stft_prefolded);
 //   - frame_filterbank_logpower_kernel replaces frame_filterbank_logpower
-//     (_kernel_row_aligned, _kernel_flat): B2's body over n windows at
+//     (_kernel_row_aligned, _kernel_flat): B2's f32 body over n windows at
 //     offset i * step of one float32 or int16 buffer, the samples scaled in
 //     the kernel, the product in f32 (the TPU kernel's HIGHEST dot), the
 //     output f32 [n, T, F]. Any hop and step: the TPU's hop % 128 rule is a
 //     Mosaic layout rule.
 // Each computes what its TPU kernel computes, with the same rounding points:
-// the framed samples arrive in the compute type T (f32 or bf16), every
-// product accumulates in f32, B1's power is rounded to T before the mel
-// projection, and the log is taken in f32 and rounded to T on store. Both
+// the framed samples arrive in the compute type (f32 or bf16), every product
+// accumulates in f32, B1's power c*c + s*s is rounded to the compute type
+// before the mel projection, B2's y*y + eps rounds the multiply and the add
+// separately, and the log is taken in f32 and rounded on store. B1 and B2
 // write the [N, F|M, T] mel-image orientation directly.
 //
-// What bounds them on this card. B1 does about 0.66 GFLOP per segment
-// (2 x 511 frames x 1024 taps x 316 DFT bins x 2) against about 290 KB of
-// audio in: it is compute-bound. B2 does about 0.10 GFLOP per segment
-// (511 x 1024 x 96 x 2) against the same input. This first version runs
-// SIMT f32 FMAs: one block per (segment, tile of frames) stages the tile's
-// overlapping samples in shared memory once, each thread keeps a register
-// block of (2 bins or filters) x (8 or 16 frames) accumulators so one shared
-// load feeds several FMAs, and the DFT bases and the filterbank are read from
-// global memory, where they stay resident in L2. Tensor cores (wgmma) fed by
-// TMA are later work.
+// What bounds them on this card (H100 SXM: 989 TFLOP/s bf16 dense,
+// 3.35 TB/s). At v2.4's geometry (511 frames of 1024 taps at hop 280, 316
+// DFT bins, 96 mels or filters) B1 does 0.69 GFLOP per segment (the DFT
+// 2 x 511 x 1024 x 316 x 2, the mel product 511 x 316 x 96 x 2) against
+// about 0.4 MB moved: compute-bound at 0.70 us per segment. B2 does 0.10
+// GFLOP per segment (0.10 us) against 288 KB of bf16 audio in and 98 KB out
+// (0.115 us): memory-bound. A library GEMM on materialised frames reads 3.66x
+// the audio, since 1024-tap frames at hop 280 overlap.
+//
+// The bf16 kernels (the fast/bf16 main path) run on the tensor cores with
+// wgmma.mma_async m64nNk16 (bf16 operands, f32 accumulators, A from
+// registers, B from shared memory):
+//   - one CTA of two warpgroups per (segment, tile of 128 frames, column
+//     group) stages the tile's sample span once in shared memory with
+//     cp.async, as bf16; frames are never materialised in device memory
+//     (one warpgroup, 64 frames, where a hop above about 600 samples makes
+//     the span of 128 frames too large; above about 1200 even 64 frames do
+//     not fit, and the launch is refused);
+//   - each warp owns 16 frames; its A fragments come straight from the span
+//     (frame r, tap k at span[r * hop + k]): one ldmatrix.x4 per k16 step
+//     when every row start is 16-byte aligned (hop 280, 312 and 320 on
+//     aligned segments; conflict free at 280 and 312, while at 320 the 8
+//     rows of a matrix share a bank), two 16-bit loads per pair of taps
+//     otherwise (any other hop, segment length or offset);
+//   - the B operand (B2's filterbank, B1's cos|sin bases), packed on the
+//     host into 64-tap chunks of wgmma's unswizzled K-major core matrices,
+//     streams through a 4-stage ring of bulk copies (the TMA, one thread
+//     issuing, an mbarrier per stage) shared by both warpgroups: each chunk
+//     read from L2 serves 128 frames;
+//   - the MMAs of one chunk run while the next chunk's A fragments load
+//     (two register buffers, one wgmma group in flight);
+//   - B1 loops over chunks of 64 DFT bins: c and s accumulate over all taps,
+//     then bf16(c*c + s*s) is built in registers straight into the mel
+//     product's A fragments (an m64n16 accumulator pair is an m64k16 A
+//     fragment), and the mel product runs on the tensor cores against the
+//     chunk's mel rows, accumulating in f32 across chunks;
+//   - the epilogue goes through shared memory so that the [F, T] store is
+//     coalesced along T.
+// The sums run in another order than the plain version's matmul; the
+// bf16 results agree with it within 2^-6 |plain| + 1e-2 (a flipped bf16
+// rounding of the power or of the output).
+// The f32 kernels keep SIMT f32 FMAs: their contract is the TPU's
+// Precision.HIGHEST, exact f32 products with no TF32. One block per
+// (segment, tile of 32 frames) stages the tile's samples in shared memory
+// once; each thread keeps a register block of (2 bins or filters) x (8 or
+// 16 frames) accumulators; the bases and the filterbank are read from
+// global memory, where they stay resident in L2.
 //
 // Plain C entry points, loaded with ctypes: each launches on the caller's
 // stream, allocates nothing, and returns cudaGetLastError() after the launch.
@@ -37,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -47,24 +87,13 @@ __device__ __forceinline__ float to_f32<float>(float v) {
   return v;
 }
 template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <>
 __device__ __forceinline__ float to_f32<short>(short v) {
   return static_cast<float>(v);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+// ---------------------------------------------------------------------------
+// f32 SIMT kernels
+// ---------------------------------------------------------------------------
 
 // Frames per block, frames per thread, and filters/bins per thread.
 constexpr int kTileFrames = 32;
@@ -76,25 +105,23 @@ __host__ __device__ __forceinline__ int tile_span(int hop, int flen) {
   return (kTileFrames - 1) * hop + flen;
 }
 
-// Stage samples [start, start + span) of one segment in shared memory as
-// f32, zero past the segment's end (frames past n_frames read the zeros
-// and are never stored).
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ x, float* s_x,
+// Stage samples [start, start + span) of one segment in shared memory, zero
+// past the segment's end (frames past n_frames read the zeros and are never
+// stored).
+__device__ __forceinline__ void load_tile(const float* __restrict__ x, float* s_x,
                                           int start, int span, int S) {
   for (int i = threadIdx.x; i < span; i += blockDim.x) {
     const int g = start + i;
-    s_x[i] = g < S ? to_f32<T>(x[g]) : 0.0f;
+    s_x[i] = g < S ? x[g] : 0.0f;
   }
 }
 
 // B2: out[n, f, t] = log(y^2 + eps), y = sum_k x[n, t*hop + k] * w[f, k].
 // wt is the filterbank transposed to [K, F] so that neighbouring threads
 // (neighbouring filters) read neighbouring addresses.
-template <typename T>
-__global__ void filterbank_logpower_kernel(const T* __restrict__ seg,
-                                           const T* __restrict__ wt,
-                                           T* __restrict__ out, int S, int K,
+__global__ void filterbank_logpower_kernel(const float* __restrict__ seg,
+                                           const float* __restrict__ wt,
+                                           float* __restrict__ out, int S, int K,
                                            int hop, int F, int n_frames,
                                            float eps) {
   extern __shared__ float s_x[];
@@ -115,8 +142,8 @@ __global__ void filterbank_logpower_kernel(const T* __restrict__ seg,
     float acc1[kFbFramesPerThread] = {};
     const float* xs = s_x + j0 * hop;
     for (int k = 0; k < K; ++k) {
-      const float w0 = to_f32<T>(wt[static_cast<size_t>(k) * F + f0]);
-      const float w1 = has1 ? to_f32<T>(wt[static_cast<size_t>(k) * F + f1]) : 0.0f;
+      const float w0 = wt[static_cast<size_t>(k) * F + f0];
+      const float w1 = has1 ? wt[static_cast<size_t>(k) * F + f1] : 0.0f;
 #pragma unroll
       for (int j = 0; j < kFbFramesPerThread; ++j) {
         const float v = xs[j * hop + k];
@@ -130,10 +157,10 @@ __global__ void filterbank_logpower_kernel(const T* __restrict__ seg,
       if (t >= n_frames) break;
       // y*y and +eps rounded separately, as the reference does (no FMA).
       out[(static_cast<size_t>(n) * F + f0) * n_frames + t] =
-          from_f32<T>(logf(__fadd_rn(__fmul_rn(acc0[j], acc0[j]), eps)));
+          logf(__fadd_rn(__fmul_rn(acc0[j], acc0[j]), eps));
       if (has1) {
         out[(static_cast<size_t>(n) * F + f1) * n_frames + t] =
-            from_f32<T>(logf(__fadd_rn(__fmul_rn(acc1[j], acc1[j]), eps)));
+            logf(__fadd_rn(__fmul_rn(acc1[j], acc1[j]), eps));
       }
     }
   }
@@ -144,12 +171,11 @@ __global__ void filterbank_logpower_kernel(const T* __restrict__ seg,
 // bases), then out[n, m, t] = log(sum_b power[t, b] * mel[b, m] + eps).
 // bc and bs are [flen, bins], mel is [bins, M]. The power tile stays in
 // shared memory between the two products.
-template <typename T>
-__global__ void stft_melspec_kernel(const T* __restrict__ seg,
-                                    const T* __restrict__ bc,
-                                    const T* __restrict__ bs,
-                                    const T* __restrict__ mel,
-                                    T* __restrict__ out, int S, int flen,
+__global__ void stft_melspec_kernel(const float* __restrict__ seg,
+                                    const float* __restrict__ bc,
+                                    const float* __restrict__ bs,
+                                    const float* __restrict__ mel,
+                                    float* __restrict__ out, int S, int flen,
                                     int hop, int bins, int M, int n_frames,
                                     float eps) {
   extern __shared__ float smem[];
@@ -175,10 +201,10 @@ __global__ void stft_melspec_kernel(const T* __restrict__ seg,
     const float* xs = s_x + j0 * hop;
     for (int k = 0; k < flen; ++k) {
       const size_t row = static_cast<size_t>(k) * bins;
-      const float cb0 = to_f32<T>(bc[row + b0]);
-      const float sb0 = to_f32<T>(bs[row + b0]);
-      const float cb1 = has1 ? to_f32<T>(bc[row + b1]) : 0.0f;
-      const float sb1 = has1 ? to_f32<T>(bs[row + b1]) : 0.0f;
+      const float cb0 = bc[row + b0];
+      const float sb0 = bs[row + b0];
+      const float cb1 = has1 ? bc[row + b1] : 0.0f;
+      const float sb1 = has1 ? bs[row + b1] : 0.0f;
 #pragma unroll
       for (int j = 0; j < kStftFramesPerThread; ++j) {
         const float v = xs[j * hop + k];
@@ -190,12 +216,12 @@ __global__ void stft_melspec_kernel(const T* __restrict__ seg,
     }
 #pragma unroll
     for (int j = 0; j < kStftFramesPerThread; ++j) {
-      // c*c + s*s in f32, then rounded to T: the mel product's operand.
-      const float p0 = __fadd_rn(__fmul_rn(c0[j], c0[j]), __fmul_rn(s0[j], s0[j]));
-      s_p[(j0 + j) * bins + b0] = to_f32<T>(from_f32<T>(p0));
+      // c*c + s*s in f32: the mel product's operand.
+      s_p[(j0 + j) * bins + b0] =
+          __fadd_rn(__fmul_rn(c0[j], c0[j]), __fmul_rn(s0[j], s0[j]));
       if (has1) {
-        const float p1 = __fadd_rn(__fmul_rn(c1[j], c1[j]), __fmul_rn(s1[j], s1[j]));
-        s_p[(j0 + j) * bins + b1] = to_f32<T>(from_f32<T>(p1));
+        s_p[(j0 + j) * bins + b1] =
+            __fadd_rn(__fmul_rn(c1[j], c1[j]), __fmul_rn(s1[j], s1[j]));
       }
     }
   }
@@ -208,10 +234,10 @@ __global__ void stft_melspec_kernel(const T* __restrict__ seg,
     const float* p = s_p + j * bins;
     float acc = 0.0f;
     for (int b = 0; b < bins; ++b) {
-      acc = fmaf(p[b], to_f32<T>(mel[static_cast<size_t>(b) * M + m]), acc);
+      acc = fmaf(p[b], mel[static_cast<size_t>(b) * M + m], acc);
     }
     out[(static_cast<size_t>(n) * M + m) * n_frames + t0 + j] =
-        from_f32<T>(logf(__fadd_rn(acc, eps)));
+        logf(__fadd_rn(acc, eps));
   }
 }
 
@@ -265,6 +291,594 @@ __global__ void frame_filterbank_logpower_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core kernels
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// The host packs the B operands for this tiling (ops/cuda/frontend.py,
+// MMA_TAPS, MMA_BINS, MMA_MAX_COLS).
+constexpr int kMmaKc = 64;             // taps per chunk of the B ring
+constexpr int kStages = 4;              // B ring depth
+constexpr int kLookahead = kStages - 2; // chunks in flight ahead of the one the MMAs read
+constexpr int kStftCols = 128;          // B1 columns per chunk: cos 64 | sin 64
+constexpr int kMaxWarpgroups = 2;       // per CTA, sharing each B chunk; 64 frames each
+constexpr size_t kMaxSmem = 227 * 1024;
+// A B chunk in shared memory is [cols / 8][kMmaKc / 8] core matrices of 8
+// columns x 8 taps (128 contiguous bytes): wgmma's K-major layout without
+// swizzle. Neighbours along K are 128 bytes apart, along N 1024.
+constexpr unsigned kCoreBytes = 128;
+constexpr unsigned kCoreRowBytes = kCoreBytes * (kMmaKc / 8);
+
+// The B ring of ring_cols-column chunks, which then holds the output tile
+// of out_cols columns and tile_rows frames: its size in elements (a
+// multiple of 8, so that what follows stays 16-byte aligned).
+__host__ __device__ __forceinline__ int ring_elems(int ring_cols, int out_cols, int tile_rows) {
+  const int ring = kStages * ring_cols * kMmaKc;
+  const int tile = out_cols * (tile_rows + 8);
+  return ring > tile ? ring : tile;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; the bytes past src_bytes are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of registers that an
+// in-flight wgmma reads (A) or accumulates into (D) across the fences.
+template <int NT>
+__device__ __forceinline__ void fence_regs(float (&d)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+  }
+}
+
+template <int NK>
+__device__ __forceinline__ void fence_regs(unsigned (&a)[NK][4]) {
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
+  }
+}
+
+// The shared-memory descriptor of a K-major, unswizzled B tile starting at p:
+// the start address, then the byte offsets (over 16) between core matrices
+// along K (the leading dimension) and along N (the stride dimension).
+__device__ __forceinline__ uint64_t smem_desc(const bf16* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kCoreBytes >> 4) << 16) |
+         (static_cast<uint64_t>(kCoreRowBytes >> 4) << 32);
+}
+
+// d[NT][4] += a (this warp's 16 of the warpgroup's 64 rows, 16 taps, in
+// registers) x B (16 taps x NT * 8 columns at desc), asynchronously: the
+// m64nNk16 bf16 wgmma with f32 accumulators. d[j] holds columns 8j..8j+7 in
+// mma.sync's accumulator layout.
+template <int NT>
+struct Wgmma;
+
+template <>
+struct Wgmma<4> {
+  static __device__ __forceinline__ void run(float (&d)[4][4], const unsigned (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void run(float (&d)[8][4], const unsigned (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<12> {
+  static __device__ __forceinline__ void run(float (&d)[12][4], const unsigned (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void run(float (&d)[16][4], const unsigned (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+// Stage elements [a0, a0 + len) of the flat bf16 input in s, counting
+// elements from the 16-byte-aligned address base: whole 16-byte pieces from
+// a0 rounded down to 8 elements, zero at and past hi (the segment's end),
+// so frames past the segment read zeros and are never stored. Returns a0's
+// offset in s. Issues cp.async without committing.
+__device__ __forceinline__ int stage_span(const bf16* base, long long a0, int len,
+                                          long long hi, bf16* s) {
+  const long long a_al = a0 & ~7LL;
+  const int pieces = static_cast<int>((a0 - a_al + len + 7) >> 3);
+  for (int p = threadIdx.x; p < pieces; p += blockDim.x) {
+    const long long g = a_al + 8LL * p;
+    const long long valid = hi - g;
+    const int bytes = valid >= 8 ? 16 : (valid > 0 ? static_cast<int>(valid) * 2 : 0);
+    cp_async16(s + 8 * p, bytes > 0 ? base + g : base, bytes);
+  }
+  return static_cast<int>(a0 - a_al);
+}
+
+// The B ring's chunks arrive by bulk copy (the TMA), each completing on its
+// stage's mbarrier.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One thread copies bytes (a multiple of 16) from the 16-byte-aligned src
+// to dst; the copy completes the current phase of bar.
+__device__ __forceinline__ void bulk_load(bf16* dst, const bf16* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait until the phase of bar with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ unsigned pair16(const unsigned short* h, int i) {
+  return static_cast<unsigned>(h[i]) | (static_cast<unsigned>(h[i + 1]) << 16);
+}
+
+// How a thread loads its A fragments from the staged span (frame r, tap k
+// at span[r * hop + k]):
+//   kMatrix: every row start is 16-byte aligned (hop, segment length and
+//     the input's address are multiples of 8 elements): one ldmatrix.x4
+//     per k16 step, lane l giving row (l & 7) + 8 ((l >> 3) & 1), taps
+//     8 (l >> 4) onwards; at hop 280 and 312 the 8 rows of a matrix fall
+//     on distinct banks;
+//   kHalves: otherwise: two 16-bit loads per pair of taps, right at any
+//     offset.
+enum ALoad { kHalves, kMatrix };
+
+// This thread's A fragment of one m16k16 step: ra and rb (= ra + 8 hop) are
+// the span offsets of its two frames' tap 2t, rm its ldmatrix row's, and k0
+// the step's first tap.
+template <int kLoad>
+__device__ __forceinline__ void load_a(const bf16* s, int ra, int rb, int rm, int k0,
+                                       unsigned (&a)[4]) {
+  if (kLoad == kMatrix) {
+    ldmatrix_x4(a, s + rm + k0);
+  } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(s);
+    a[0] = pair16(h, ra + k0);
+    a[1] = pair16(h, rb + k0);
+    a[2] = pair16(h, ra + k0 + 8);
+    a[3] = pair16(h, rb + k0 + 8);
+  }
+}
+
+// The same with the taps at or past K zero (tap = k0 + 2t is this thread's
+// first tap).
+__device__ __forceinline__ unsigned pair16_masked(const unsigned short* h, int i, int tap,
+                                                  int K) {
+  const unsigned lo = tap < K ? h[i] : 0u;
+  const unsigned hi = tap + 1 < K ? h[i + 1] : 0u;
+  return lo | (hi << 16);
+}
+
+__device__ __forceinline__ void load_a_masked(const bf16* s, int ra, int rb, int k0,
+                                              int tap, int K, unsigned (&a)[4]) {
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(s);
+  a[0] = pair16_masked(h, ra + k0, tap, K);
+  a[1] = pair16_masked(h, rb + k0, tap, K);
+  a[2] = pair16_masked(h, ra + k0 + 8, tap + 8, K);
+  a[3] = pair16_masked(h, rb + k0 + 8, tap + 8, K);
+}
+
+constexpr int kSteps = kMmaKc / 16;  // k16 steps per chunk
+
+// This thread's A fragments of one chunk (the taps of the chunk's four
+// k16 steps). The chunk that holds tap K - 1 when K % 64 != 0 zeroes the
+// taps at or past K (the packed B is zero there too; the span covers the
+// whole chunk).
+template <int kLoad>
+__device__ __forceinline__ void load_chunk_a(unsigned (&a)[kSteps][4], const bf16* s_x,
+                                             int ra, int rb, int rm, int chunk, int kchunks,
+                                             int K, int tq) {
+  const int kbase = chunk * kMmaKc;
+  if (chunk == kchunks - 1 && K % kMmaKc != 0) {
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      load_a_masked(s_x, ra, rb, kbase + kk * 16, kbase + kk * 16 + tq, K, a[kk]);
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) load_a<kLoad>(s_x, ra, rb, rm, kbase + kk * 16, a[kk]);
+  }
+}
+
+// acc += frames (the warpgroup's 64 rows, one chunk of taps, in a) x the
+// staged chunk (NT * 8 columns): four wgmma, committed as one group and
+// left in flight.
+template <int NT>
+__device__ __forceinline__ void issue_chunk(float (&acc)[NT][4], const unsigned (&a)[kSteps][4],
+                                           const bf16* stage) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    Wgmma<NT>::run(acc, a[kk], smem_desc(stage + kk * 2 * (kCoreBytes / 2)));
+  }
+  wgmma_commit();
+}
+
+// Write acc (this warp's 16 rows x NT * 8 columns) through fn into the
+// [cols, pitch] shared tile s_o, transposed: s_o[col][row].
+template <int NT, typename Fn>
+__device__ __forceinline__ void stage_out(const float (&acc)[NT][4], bf16* s_o, int pitch,
+                                          int row, int tq, Fn fn) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int col = j * 8 + tq;
+    s_o[col * pitch + row] = __float2bfloat16_rn(fn(acc[j][0]));
+    s_o[(col + 1) * pitch + row] = __float2bfloat16_rn(fn(acc[j][1]));
+    s_o[col * pitch + row + 8] = __float2bfloat16_rn(fn(acc[j][2]));
+    s_o[(col + 1) * pitch + row + 8] = __float2bfloat16_rn(fn(acc[j][3]));
+  }
+}
+
+// Store the [cols, tm] tile s_o as out[n, col_base + col, t0 + r] for the
+// columns below n_cols and the frames below n_frames: a warp per column,
+// its lanes along T, so that the store is coalesced.
+__device__ __forceinline__ void store_out(const bf16* s_o, int pitch, int cols, int tm,
+                                          bf16* out, int n, int n_cols, int col_base,
+                                          int n_frames, int t0) {
+  const int frames = min(tm, n_frames - t0);
+  const int warps = blockDim.x >> 5;
+  const int cols_here = min(cols, n_cols - col_base);
+  for (int col = threadIdx.x >> 5; col < cols_here; col += warps) {
+    bf16* row = out + (static_cast<size_t>(n) * n_cols + col_base + col) * n_frames + t0;
+    for (int r = threadIdx.x & 31; r < frames; r += 32) row[r] = s_o[col * pitch + r];
+  }
+}
+
+// B2 in bf16: out[n, f, t] = bf16(log(y*y + eps)), y = sum_k x[n, t*hop + k]
+// * w[f, k] in f32. Grid (frame tiles, N, column groups); blockDim 32 x
+// warps, 16 frames per warp. wpack is [groups, kchunks, NT*8, kMmaKc].
+template <int NT, int kLoad>
+__global__ void __launch_bounds__(128 * kMaxWarpgroups)
+    filterbank_logpower_mma_kernel(const bf16* __restrict__ base, int lead0,
+                                   const bf16* __restrict__ wpack, bf16* __restrict__ out,
+                                   int S, int K, int hop, int F, int n_frames, int kchunks,
+                                   int span_len, int span_alloc, float eps) {
+  constexpr int kCols = NT * 8;
+  constexpr unsigned kChunkBytes = sizeof(bf16) * kCols * kMmaKc;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const int tm = blockDim.x / 2;  // 64 frames per warpgroup of 128 threads
+  bf16* s_x = reinterpret_cast<bf16*>(mma_smem);
+  bf16* ring = s_x + span_alloc;  // [kStages][kCols * kMmaKc]; then the output tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + ring_elems(kCols, kCols, tm));
+  const int n = blockIdx.y;
+  const int t0 = blockIdx.x * tm;
+  const bf16* wg = wpack + static_cast<size_t>(blockIdx.z) * kchunks * kCols * kMmaKc;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(&full[st]);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kLookahead && i < kchunks; ++i) {
+      bulk_load(ring + i * kCols * kMmaKc, wg + static_cast<size_t>(i) * kCols * kMmaKc,
+                kChunkBytes, &full[i]);
+    }
+  }
+  const long long seg0 = lead0 + static_cast<long long>(n) * S;
+  const int lead = stage_span(base, seg0 + static_cast<long long>(t0) * hop, span_len,
+                              seg0 + S, s_x);
+  cp_async_commit();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tq = (lane & 3) * 2;
+  const int ra = lead + (warp * 16 + (lane >> 2)) * hop + tq;
+  const int rb = ra + 8 * hop;
+  const int rm = lead + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * hop + (lane >> 4) * 8;
+  float acc[NT][4] = {};
+  // Chunk i: wait for its B (and, first, the span); once every warp is
+  // past chunk i - 2's MMAs, refill that stage with chunk i + kLookahead;
+  // issue chunk i's MMAs (A in `cur`); then, once chunk i - 1's MMAs are
+  // done, load chunk i + 1's A into `nxt` while chunk i's run.
+  auto step = [&](int i, unsigned (&cur)[kSteps][4], unsigned (&nxt)[kSteps][4]) {
+    if (i == 0) cp_async_wait_all();
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+    __syncthreads();
+    const int ahead = i + kLookahead;
+    if (threadIdx.x == 0 && ahead < kchunks) {
+      bulk_load(ring + (ahead % kStages) * kCols * kMmaKc,
+                wg + static_cast<size_t>(ahead) * kCols * kMmaKc, kChunkBytes,
+                &full[ahead % kStages]);
+    }
+    if (i == 0) load_chunk_a<kLoad>(cur, s_x, ra, rb, rm, 0, kchunks, K, tq);
+    issue_chunk<NT>(acc, cur, ring + (i % kStages) * kCols * kMmaKc);
+    wgmma_wait<1>();
+    fence_regs(nxt);
+    if (i + 1 < kchunks) load_chunk_a<kLoad>(nxt, s_x, ra, rb, rm, i + 1, kchunks, K, tq);
+  };
+  unsigned a0[kSteps][4], a1[kSteps][4];
+  for (int i = 0; i < kchunks; i += 2) {
+    step(i, a0, a1);
+    if (i + 1 < kchunks) step(i + 1, a1, a0);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(a0);
+  fence_regs(a1);
+  __syncthreads();  // the ring is free: it holds the output tile now
+
+  const int pitch = tm + 8;
+  stage_out<NT>(acc, ring, pitch, warp * 16 + (lane >> 2), tq, [eps](float y) {
+    // y*y and +eps rounded separately, as the reference does (no FMA).
+    return logf(__fadd_rn(__fmul_rn(y, y), eps));
+  });
+  __syncthreads();
+  store_out(ring, pitch, kCols, tm, out, n, F, blockIdx.z * kCols, n_frames, t0);
+}
+
+// Two power values bf16(c*c + s*s), packed low-first: one A register.
+__device__ __forceinline__ unsigned power_pair(float c0, float s0, float c1, float s1) {
+  const __nv_bfloat162 v =
+      __floats2bfloat162_rn(__fadd_rn(__fmul_rn(c0, c0), __fmul_rn(s0, s0)),
+                            __fadd_rn(__fmul_rn(c1, c1), __fmul_rn(s1, s1)));
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// macc[NTM] += bf16 power of the warpgroup's 64 frames x the chunk's 64
+// bins, times the chunk's mel rows s_mel (NTM*8 mels x 64 bins, core
+// matrix order), and wait for it. acc holds c in n-tiles 0-7 (bins
+// 8q..8q+7) and s in n-tiles 8-15: the accumulator pair (2f, 2f+1) is the A
+// fragment of bins 16f..16f+15.
+template <int NTM>
+__device__ __forceinline__ void mel_product(const float (&acc)[16][4],
+                                            float (&macc)[NTM][4], const bf16* s_mel) {
+  unsigned a[4][4];
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    const float(&c0)[4] = acc[2 * f];
+    const float(&c1)[4] = acc[2 * f + 1];
+    const float(&s0)[4] = acc[8 + 2 * f];
+    const float(&s1)[4] = acc[8 + 2 * f + 1];
+    a[f][0] = power_pair(c0[0], s0[0], c0[1], s0[1]);  // row g, bins 2t, 2t+1
+    a[f][1] = power_pair(c0[2], s0[2], c0[3], s0[3]);  // row g+8
+    a[f][2] = power_pair(c1[0], s1[0], c1[1], s1[1]);  // row g, bins 8+2t, 9+2t
+    a[f][3] = power_pair(c1[2], s1[2], c1[3], s1[3]);  // row g+8
+  }
+  fence_regs(macc);
+  wgmma_fence();
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    Wgmma<NTM>::run(macc, a[f], smem_desc(s_mel + f * 2 * (kCoreBytes / 2)));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(macc);
+  fence_regs(a);
+}
+
+// B1 in bf16. Grid (frame tiles, N, mel groups); blockDim 32 x warps, 16
+// frames per warp. bpack is [bchunks, kchunks, kStftCols, kMmaKc] (chunk j:
+// cos of bins 64j..64j+63, then sin of the same bins), mpack is [groups,
+// bchunks, NTM*8, kMmaKc] (the mel rows of chunk j's bins, transposed).
+template <int NTM, int kLoad>
+__global__ void __launch_bounds__(128 * kMaxWarpgroups)
+    stft_melspec_mma_kernel(const bf16* __restrict__ base, int lead0,
+                            const bf16* __restrict__ bpack, const bf16* __restrict__ mpack,
+                            bf16* __restrict__ out, int S, int K, int hop, int M,
+                            int n_frames, int kchunks, int bchunks, int span_len,
+                            int span_alloc, float eps) {
+  constexpr int kMels = NTM * 8;
+  constexpr unsigned kChunkBytes = sizeof(bf16) * kStftCols * kMmaKc;
+  constexpr unsigned kMelBytes = sizeof(bf16) * kMels * kMmaKc;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  const int tm = blockDim.x / 2;  // 64 frames per warpgroup of 128 threads
+  bf16* s_x = reinterpret_cast<bf16*>(mma_smem);
+  bf16* ring = s_x + span_alloc;  // [kStages][kStftCols * kMmaKc]; then the output tile
+  bf16* s_mel = ring + ring_elems(kStftCols, kMels, tm);  // [kMels * kMmaKc]
+  uint64_t* full = reinterpret_cast<uint64_t*>(s_mel + kMels * kMmaKc);  // the ring's, then s_mel's
+  const int n = blockIdx.y;
+  const int t0 = blockIdx.x * tm;
+  const bf16* mg = mpack + static_cast<size_t>(blockIdx.z) * bchunks * kMels * kMmaKc;
+  // Step st: bin chunk st / kchunks, tap chunk st % kchunks; bpack holds
+  // the steps' chunks in this order.
+  const int steps = bchunks * kchunks;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st <= kStages; ++st) mbar_init(&full[st]);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kLookahead && st < steps; ++st) {
+      bulk_load(ring + st * kStftCols * kMmaKc, bpack + static_cast<size_t>(st) * kStftCols * kMmaKc,
+                kChunkBytes, &full[st]);
+    }
+  }
+  const long long seg0 = lead0 + static_cast<long long>(n) * S;
+  const int lead = stage_span(base, seg0 + static_cast<long long>(t0) * hop, span_len,
+                              seg0 + S, s_x);
+  cp_async_commit();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tq = (lane & 3) * 2;
+  const int ra = lead + (warp * 16 + (lane >> 2)) * hop + tq;
+  const int rb = ra + 8 * hop;
+  const int rm = lead + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * hop + (lane >> 4) * 8;
+  float acc[16][4] = {};
+  float macc[NTM][4] = {};
+  // As B2's steps; the first step of a bin chunk also loads its mel rows
+  // (every warp is past the last mel product), and its last step waits for
+  // all its MMAs, turns c and s into the power and runs the mel product.
+  auto step = [&](int st, unsigned (&cur)[kSteps][4], unsigned (&nxt)[kSteps][4]) {
+    const int i = st % kchunks;
+    const int j = st / kchunks;
+    if (st == 0) cp_async_wait_all();
+    mbar_wait(&full[st % kStages], (st / kStages) & 1);
+    __syncthreads();
+    const int ahead = st + kLookahead;
+    if (threadIdx.x == 0) {
+      if (i == 0) bulk_load(s_mel, mg + static_cast<size_t>(j) * kMels * kMmaKc, kMelBytes,
+                            &full[kStages]);
+      if (ahead < steps) {
+        bulk_load(ring + (ahead % kStages) * kStftCols * kMmaKc,
+                  bpack + static_cast<size_t>(ahead) * kStftCols * kMmaKc, kChunkBytes,
+                  &full[ahead % kStages]);
+      }
+    }
+    if (st == 0) load_chunk_a<kLoad>(cur, s_x, ra, rb, rm, 0, kchunks, K, tq);
+    issue_chunk<16>(acc, cur, ring + (st % kStages) * kStftCols * kMmaKc);
+    if (i == kchunks - 1) {
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_wait(&full[kStages], j & 1);
+      mel_product<NTM>(acc, macc, s_mel);
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.0f;
+      }
+    } else {
+      wgmma_wait<1>();
+    }
+    fence_regs(nxt);
+    if (st + 1 < steps) load_chunk_a<kLoad>(nxt, s_x, ra, rb, rm, (st + 1) % kchunks, kchunks, K, tq);
+  };
+  unsigned a0[kSteps][4], a1[kSteps][4];
+  for (int st = 0; st < steps; st += 2) {
+    step(st, a0, a1);
+    if (st + 1 < steps) step(st + 1, a1, a0);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(a0);
+  fence_regs(a1);
+  __syncthreads();  // the ring is free: it holds the output tile now
+  const int pitch = tm + 8;
+  stage_out<NTM>(macc, ring, pitch, warp * 16 + (lane >> 2), tq,
+                 [eps](float v) { return logf(__fadd_rn(v, eps)); });
+  __syncthreads();
+  store_out(ring, pitch, kMels, tm, out, n, M, blockIdx.z * kMels, n_frames, t0);
+}
+
 int round_up_threads(int items) {
   const int t = (items + 31) / 32 * 32;
   return t < 1024 ? t : 1024;
@@ -275,42 +889,6 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
-}
-
-template <typename T>
-int launch_filterbank(const void* seg, const void* wt, void* out, int N, int S,
-                      int K, int hop, int F, int n_frames, float eps,
-                      cudaStream_t stream) {
-  const size_t smem = sizeof(float) * tile_span(hop, K);
-  cudaError_t err = set_smem(filterbank_logpower_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_frames + kTileFrames - 1) / kTileFrames, N);
-  const int half = (F + kColsPerThread - 1) / kColsPerThread;
-  const int threads =
-      round_up_threads(half * (kTileFrames / kFbFramesPerThread));
-  filterbank_logpower_kernel<T><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(seg), static_cast<const T*>(wt),
-      static_cast<T*>(out), S, K, hop, F, n_frames, eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_stft(const void* seg, const void* bc, const void* bs,
-                const void* mel, void* out, int N, int S, int flen, int hop,
-                int bins, int M, int n_frames, float eps, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (tile_span(hop, flen) + static_cast<size_t>(kTileFrames) * bins);
-  cudaError_t err = set_smem(stft_melspec_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_frames + kTileFrames - 1) / kTileFrames, N);
-  const int half = (bins + kColsPerThread - 1) / kColsPerThread;
-  const int threads =
-      round_up_threads(half * (kTileFrames / kStftFramesPerThread));
-  stft_melspec_kernel<T><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(seg), static_cast<const T*>(bc),
-      static_cast<const T*>(bs), static_cast<const T*>(mel),
-      static_cast<T*>(out), S, flen, hop, bins, M, n_frames, eps);
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename A>
@@ -331,33 +909,187 @@ int launch_frame_filterbank(const void* audio, const void* wt, void* out, int N,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+// The geometry of a tensor-core launch: the input's 16-byte-aligned base and
+// the offset of its first element from it, the warpgroups per CTA (two,
+// or one where a large hop's span would not fit beside the ring), and the
+// span a CTA stages (its allocation rounded to 128 bytes, so that the B
+// ring after it is aligned).
+struct MmaPlan {
+  const bf16* base;
+  int lead0;
+  int warpgroups;
+  int span_len;
+  int span_alloc;
+  size_t smem;
+  int load;  // ALoad
+};
 
-// dtype: 0 = float32, 1 = bfloat16 (segments, weights and output alike).
-extern "C" int bn_filterbank_logpower(int dtype, const void* seg,
-                                      const void* wt, void* out, int N, int S,
-                                      int K, int hop, int F, int n_frames,
-                                      float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_filterbank<float>(seg, wt, out, N, S, K, hop, F, n_frames,
-                                    eps, s);
+// Returned when even one warpgroup's 64 frames do not fit in shared memory
+// beside the B ring (bn_frontend_bf16_max_hop gives the limit: 1209 for B1
+// and 1437 for B2 at 1024 taps and 96 mels or filters).
+constexpr int kSpanTooLarge = -1;
+
+// A CTA's shared bytes besides the span, for tile_rows frames and cols
+// columns: B2's ring (which then holds the [cols, tile_rows + 8] output
+// tile) and its mbarriers; B1's ring, the mel rows and one more mbarrier.
+size_t mma_extra_smem(bool stft, int cols, int tile_rows) {
+  if (stft) {
+    return sizeof(bf16) * (ring_elems(kStftCols, cols, tile_rows) + cols * kMmaKc) +
+           sizeof(uint64_t) * (kStages + 1);
   }
-  return launch_filterbank<__nv_bfloat16>(seg, wt, out, N, S, K, hop, F,
-                                          n_frames, eps, s);
+  return sizeof(bf16) * ring_elems(cols, cols, tile_rows) + sizeof(uint64_t) * kStages;
 }
 
-extern "C" int bn_stft_melspec(int dtype, const void* seg, const void* bc,
-                               const void* bs, const void* mel, void* out,
-                               int N, int S, int flen, int hop, int bins,
-                               int M, int n_frames, float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return launch_stft<float>(seg, bc, bs, mel, out, N, S, flen, hop, bins, M,
-                              n_frames, eps, s);
+bool plan_mma(const void* seg, int S, int K, int hop, bool stft, int cols, MmaPlan* plan) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(seg);
+  plan->base = reinterpret_cast<const bf16*>(p & ~static_cast<uintptr_t>(15));
+  plan->lead0 = static_cast<int>((p & 15) >> 1);
+  plan->load = hop % 8 == 0 && S % 8 == 0 && plan->lead0 == 0 ? kMatrix : kHalves;
+  for (int wgs = kMaxWarpgroups; wgs >= 1; --wgs) {
+    const long long span = static_cast<long long>(64 * wgs - 1) * hop +
+                           (K + kMmaKc - 1) / kMmaKc * kMmaKc;
+    const long long alloc = (7 + span + 63) / 64 * 64;
+    plan->warpgroups = wgs;
+    plan->span_len = static_cast<int>(span);
+    plan->span_alloc = static_cast<int>(alloc);
+    plan->smem = sizeof(bf16) * static_cast<size_t>(alloc) + mma_extra_smem(stft, cols, 64 * wgs);
+    if (plan->smem <= kMaxSmem) return true;
   }
-  return launch_stft<__nv_bfloat16>(seg, bc, bs, mel, out, N, S, flen, hop,
-                                    bins, M, n_frames, eps, s);
+  return false;
+}
+
+template <int NT, int kLoad>
+int launch_filterbank_mma(const MmaPlan& pl, const void* wpack, void* out, int N, int S,
+                          int K, int hop, int F, int groups, int n_frames, float eps,
+                          cudaStream_t stream) {
+  auto kernel = filterbank_logpower_mma_kernel<NT, kLoad>;
+  cudaError_t err = set_smem(kernel, pl.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tile_rows = 64 * pl.warpgroups;
+  const dim3 grid((n_frames + tile_rows - 1) / tile_rows, N, groups);
+  kernel<<<grid, 128 * pl.warpgroups, pl.smem, stream>>>(
+      pl.base, pl.lead0, static_cast<const bf16*>(wpack), static_cast<bf16*>(out), S, K,
+      hop, F, n_frames, (K + kMmaKc - 1) / kMmaKc, pl.span_len, pl.span_alloc, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NT>
+int dispatch_filterbank_mma(const MmaPlan& pl, const void* wpack, void* out, int N,
+                            int S, int K, int hop, int F, int groups, int n_frames,
+                            float eps, cudaStream_t stream) {
+  if (pl.load == kMatrix) {
+    return launch_filterbank_mma<NT, kMatrix>(pl, wpack, out, N, S, K, hop, F, groups,
+                                              n_frames, eps, stream);
+  }
+  return launch_filterbank_mma<NT, kHalves>(pl, wpack, out, N, S, K, hop, F, groups,
+                                            n_frames, eps, stream);
+}
+
+template <int NTM, int kLoad>
+int launch_stft_mma(const MmaPlan& pl, const void* bpack, const void* mpack, void* out,
+                    int N, int S, int K, int hop, int M, int bchunks, int groups,
+                    int n_frames, float eps, cudaStream_t stream) {
+  auto kernel = stft_melspec_mma_kernel<NTM, kLoad>;
+  cudaError_t err = set_smem(kernel, pl.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tile_rows = 64 * pl.warpgroups;
+  const dim3 grid((n_frames + tile_rows - 1) / tile_rows, N, groups);
+  kernel<<<grid, 128 * pl.warpgroups, pl.smem, stream>>>(
+      pl.base, pl.lead0, static_cast<const bf16*>(bpack), static_cast<const bf16*>(mpack),
+      static_cast<bf16*>(out), S, K, hop, M, n_frames, (K + kMmaKc - 1) / kMmaKc, bchunks,
+      pl.span_len, pl.span_alloc, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NTM>
+int dispatch_stft_mma(const MmaPlan& pl, const void* bpack, const void* mpack, void* out,
+                      int N, int S, int K, int hop, int M, int bchunks, int groups,
+                      int n_frames, float eps, cudaStream_t stream) {
+  if (pl.load == kMatrix) {
+    return launch_stft_mma<NTM, kMatrix>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks,
+                                         groups, n_frames, eps, stream);
+  }
+  return launch_stft_mma<NTM, kHalves>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks,
+                                       groups, n_frames, eps, stream);
+}
+
+}  // namespace
+
+extern "C" int bn_filterbank_logpower_f32(const void* seg, const void* wt, void* out,
+                                          int N, int S, int K, int hop, int F,
+                                          int n_frames, float eps, void* stream) {
+  const size_t smem = sizeof(float) * tile_span(hop, K);
+  cudaError_t err = set_smem(filterbank_logpower_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_frames + kTileFrames - 1) / kTileFrames, N);
+  const int half = (F + kColsPerThread - 1) / kColsPerThread;
+  const int threads = round_up_threads(half * (kTileFrames / kFbFramesPerThread));
+  filterbank_logpower_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(seg), static_cast<const float*>(wt),
+      static_cast<float*>(out), S, K, hop, F, n_frames, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bn_stft_melspec_f32(const void* seg, const void* bc, const void* bs,
+                                   const void* mel, void* out, int N, int S, int flen,
+                                   int hop, int bins, int M, int n_frames, float eps,
+                                   void* stream) {
+  const size_t smem =
+      sizeof(float) * (tile_span(hop, flen) + static_cast<size_t>(kTileFrames) * bins);
+  cudaError_t err = set_smem(stft_melspec_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_frames + kTileFrames - 1) / kTileFrames, N);
+  const int half = (bins + kColsPerThread - 1) / kColsPerThread;
+  const int threads = round_up_threads(half * (kTileFrames / kStftFramesPerThread));
+  stft_melspec_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(seg), static_cast<const float*>(bc),
+      static_cast<const float*>(bs), static_cast<const float*>(mel),
+      static_cast<float*>(out), S, flen, hop, bins, M, n_frames, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// wpack: [groups, ceil(K/64), cols, 64] bf16 with cols in {32, 64, 96, 128}.
+extern "C" int bn_filterbank_logpower_bf16(const void* seg, const void* wpack, void* out,
+                                           int N, int S, int K, int hop, int F, int cols,
+                                           int groups, int n_frames, float eps,
+                                           void* stream) {
+  MmaPlan pl;
+  if (!plan_mma(seg, S, K, hop, false, cols, &pl)) return kSpanTooLarge;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cols) {
+    case 32: return dispatch_filterbank_mma<4>(pl, wpack, out, N, S, K, hop, F, groups, n_frames, eps, s);
+    case 64: return dispatch_filterbank_mma<8>(pl, wpack, out, N, S, K, hop, F, groups, n_frames, eps, s);
+    case 96: return dispatch_filterbank_mma<12>(pl, wpack, out, N, S, K, hop, F, groups, n_frames, eps, s);
+    case 128: return dispatch_filterbank_mma<16>(pl, wpack, out, N, S, K, hop, F, groups, n_frames, eps, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// bpack: [bchunks, ceil(K/64), 128, 64]; mpack: [groups, bchunks, cols, 64]
+// bf16 with cols in {32, 64, 96, 128}.
+extern "C" int bn_stft_melspec_bf16(const void* seg, const void* bpack, const void* mpack,
+                                    void* out, int N, int S, int K, int hop, int M,
+                                    int bchunks, int cols, int groups, int n_frames,
+                                    float eps, void* stream) {
+  MmaPlan pl;
+  if (!plan_mma(seg, S, K, hop, true, cols, &pl)) return kSpanTooLarge;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cols) {
+    case 32: return dispatch_stft_mma<4>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks, groups, n_frames, eps, s);
+    case 64: return dispatch_stft_mma<8>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks, groups, n_frames, eps, s);
+    case 96: return dispatch_stft_mma<12>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks, groups, n_frames, eps, s);
+    case 128: return dispatch_stft_mma<16>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks, groups, n_frames, eps, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The largest hop the bf16 kernel of B1 (stft != 0) or B2 takes at K taps
+// and cols columns per CTA: above it bn_*_bf16 return kSpanTooLarge.
+extern "C" int bn_frontend_bf16_max_hop(int stft, int K, int cols) {
+  MmaPlan pl;
+  int hop = 0;
+  while (plan_mma(nullptr, 0, K, hop + 1, stft != 0, cols, &pl)) ++hop;
+  return hop;
 }
 
 // in_dtype: 0 = float32, 1 = int16 audio; weights and output are float32.

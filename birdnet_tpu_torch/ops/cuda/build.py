@@ -109,10 +109,16 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bn_filterbank_logpower.argtypes = [i, p, p, p, i, i, i, i, i, i, f, p]
-    lib.bn_filterbank_logpower.restype = i
-    lib.bn_stft_melspec.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i, f, p]
-    lib.bn_stft_melspec.restype = i
+    lib.bn_filterbank_logpower_f32.argtypes = [p, p, p, i, i, i, i, i, i, f, p]
+    lib.bn_filterbank_logpower_f32.restype = i
+    lib.bn_filterbank_logpower_bf16.argtypes = [p, p, p, i, i, i, i, i, i, i, i, f, p]
+    lib.bn_filterbank_logpower_bf16.restype = i
+    lib.bn_stft_melspec_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+    lib.bn_stft_melspec_f32.restype = i
+    lib.bn_stft_melspec_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+    lib.bn_stft_melspec_bf16.restype = i
+    lib.bn_frontend_bf16_max_hop.argtypes = [i, i, i]
+    lib.bn_frontend_bf16_max_hop.restype = i
     lib.bn_qconv1x1_requant.argtypes = [p, p, p, p, p, i, i, i, i, f, i, p]
     lib.bn_qconv1x1_requant.restype = i
     ints, ptrs = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)

@@ -23,6 +23,15 @@ return ``[N, F|M, T]`` in that dtype, the mel-image orientation. They keep
 the TPU kernels' rounding points: the framed samples and the weights are in
 the compute dtype, products accumulate in float32, B1's power is rounded to
 the compute dtype before the mel product, and the log is taken in float32.
+In bfloat16 (the ``fast``/``bf16`` main path) they run on the tensor cores
+(``wgmma``), with their B operands packed on the host into the layout the
+MMA reads (:func:`pack_filterbank`, :func:`pack_stft_operands`) and cached
+per device; in float32 they keep SIMT f32 FMAs (the TPU's
+``Precision.HIGHEST``: exact f32 products, no TF32). The bf16 kernels take
+hops up to :func:`bf16_max_hop` (1209 for B1 and 1437 for B2 at 1024 taps
+and 96 mels or filters: the samples of 64 frames must fit in shared memory)
+and raise ``ValueError`` above; a ``fast``/``bf16`` Classifier on such a
+model fails in ``build()``'s validation forward.
 
 A wrapper dispatches on the tensor's device: a CPU tensor takes the plain
 PyTorch version (``*_plain``), a CUDA tensor launches the kernel (building
@@ -34,7 +43,7 @@ The f64 numpy oracles (``*_reference``) are the JAX package's
 
 from __future__ import annotations
 
-import functools
+import weakref
 from typing import Tuple
 
 import numpy as np
@@ -45,7 +54,17 @@ from .build import check, load_library
 LAUNCHES = {"filterbank_logpower": 0, "stft_melspec": 0,
             "frame_filterbank_logpower": 0}
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+# The tensor-core kernels' tiling, which the packed operands follow: the B
+# operand streams in chunks of MMA_TAPS taps; B1 takes the DFT MMA_BINS bins
+# at a time (cos | sin side by side); a CTA covers at most MMA_MAX_COLS
+# filters or mels, in a multiple of 32. They must equal csrc/frontend.cu's
+# kMmaKc, kStftCols / 2 and its widest wgmma (m64n128, the largest `cols` its
+# bf16 entry points take); change both files together.
+MMA_TAPS = 64
+MMA_BINS = 64
+MMA_MAX_COLS = 128
 
 
 def reset_launches() -> None:
@@ -66,7 +85,7 @@ def _n_frames(sample_count: int, flen: int, hop: int) -> int:
 def _check_segments(segments: torch.Tensor) -> None:
     if segments.ndim != 2:
         raise ValueError(f"segments must be [N, S], got {tuple(segments.shape)}")
-    if segments.dtype not in _DTYPE_CODES:
+    if segments.dtype not in _COMPUTE_DTYPES:
         raise TypeError(
             f"segments must be float32 or bfloat16, got {segments.dtype}"
         )
@@ -85,6 +104,23 @@ def _frames(segments: torch.Tensor, flen: int, hop: int) -> torch.Tensor:
     """[N, S] -> [N, T, flen] float32 frames (values already rounded to the
     compute dtype, which is the segments' dtype)."""
     return segments.float().unfold(-1, flen, hop)
+
+
+def bf16_max_hop(flen: int, n_cols: int, *, stft: bool) -> int:
+    """The largest hop the bf16 kernel of B1 (``stft``) or B2 takes for
+    ``flen`` taps and ``n_cols`` mels or filters. Builds the kernels."""
+    return load_library().bn_frontend_bf16_max_hop(int(stft), flen, col_groups(n_cols)[1])
+
+
+def _check_span(status: int, hop: int, flen: int, n_cols: int, stft: bool) -> None:
+    """The bf16 kernels return -1, launching nothing, when the samples of 64
+    frames do not fit in shared memory beside the B operand's ring."""
+    if status == -1:
+        raise ValueError(
+            f"hop {hop}: the samples of 64 frames of {flen} taps do not fit in "
+            f"shared memory (the bf16 {'STFT' if stft else 'filterbank'} kernel "
+            f"takes hops up to {bf16_max_hop(flen, n_cols, stft=stft)} here)"
+        )
 
 
 def _launch_ready(segments: torch.Tensor, *others: torch.Tensor) -> None:
@@ -120,6 +156,77 @@ def filterbank_logpower_plain(segments: torch.Tensor, weights: torch.Tensor,
     return out.to(segments.dtype).transpose(1, 2).contiguous()
 
 
+def col_groups(n_cols: int) -> Tuple[int, int]:
+    """``(groups, cols)``: the tensor-core kernels cover ``n_cols`` filters
+    or mels in ``groups`` CTA column groups of ``cols`` each, a multiple of
+    32 and at most 128 (the padding columns are zero and never stored)."""
+    groups = -(-n_cols // MMA_MAX_COLS)
+    per = -(-n_cols // groups)
+    return groups, -(-per // 32) * 32
+
+
+def core_matrix_order(a):
+    """``[..., cols, 64]`` (a chunk of ``cols`` columns of 64 taps each) as
+    ``[..., cols/8, 8, 8, 8]``: 8-column x 8-tap core matrices of 128
+    contiguous bytes, those of one 8-column group adjacent along the taps,
+    the layout wgmma reads a K-major B operand in without swizzle. numpy
+    arrays or tensors."""
+    *lead, cols, taps = a.shape
+    return a.reshape(*lead, cols // 8, 8, taps // 8, 8).swapaxes(-3, -2)
+
+
+def pack_filterbank(weights: torch.Tensor) -> torch.Tensor:
+    """B2's B operand: the filterbank ``[F, 1, K]`` or ``[F, K]`` as
+    ``[groups, ceil(K/64), cols/8, 8, 8, 8]``: per column group (see
+    :func:`col_groups`) and 64-tap chunk, ``cols`` filters x 64 taps in
+    :func:`core_matrix_order`, each chunk one contiguous copy; taps and
+    filters zero-padded. Same dtype and device as ``weights``."""
+    weights = _filterbank(weights)
+    n_filters, kernel_size = weights.shape
+    groups, cols = col_groups(n_filters)
+    taps = -(-kernel_size // MMA_TAPS) * MMA_TAPS
+    padded = weights.new_zeros((groups * cols, taps))
+    padded[:n_filters, :kernel_size] = weights
+    chunks = padded.reshape(groups, cols, taps // MMA_TAPS, MMA_TAPS).permute(0, 2, 1, 3)
+    return core_matrix_order(chunks).contiguous()
+
+
+# The kernels' operands as built from the caller's (B1's bases, B2's packed
+# filterbank), most recent last: (key, operands). A key names its source
+# without reading the device: B1's host arrays (window, mel bank) by
+# content, compared with np.array_equal, several times cheaper per call than
+# hashing the mel bank's bytes; B2's filterbank, a device tensor, by
+# identity and version counter. An inference tensor has no version counter,
+# so its operand is built anew on every call.
+_OPERANDS: list = []
+_OPERANDS_KEPT = 8
+
+
+def _cached(match, make):
+    """The operands of the newest entry whose key ``match`` accepts; else
+    ``make()``'s ``(key, operands)``, kept."""
+    for key, operands in reversed(_OPERANDS):
+        if match(key):
+            return operands
+    key, operands = make()
+    _OPERANDS.append((key, operands))
+    del _OPERANDS[:-_OPERANDS_KEPT]
+    return operands
+
+
+def _packed_filterbank(weights: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_filterbank` in bfloat16, cached while ``weights`` lives
+    and is not modified in place (a model's filterbank is packed once)."""
+    if weights.is_inference():
+        return pack_filterbank(weights.to(torch.bfloat16))
+    version = weights._version
+    return _cached(
+        lambda key: key[0] == "filterbank" and key[1]() is weights and key[2] == version,
+        lambda: (("filterbank", weakref.ref(weights), version),
+                 pack_filterbank(weights.to(torch.bfloat16))),
+    )
+
+
 def segments_filterbank_logpower(segments: torch.Tensor, weights: torch.Tensor,
                                  *, hop: int, eps: float = 1e-6) -> torch.Tensor:
     """Conv-form frontend over segments ``[N, S]``: returns ``[N, F, T]``
@@ -129,19 +236,28 @@ def segments_filterbank_logpower(segments: torch.Tensor, weights: torch.Tensor,
     if segments.device.type == "cpu":
         return filterbank_logpower_plain(segments, weights, hop=hop, eps=eps)
     n, sample_count = segments.shape
-    weights = _filterbank(weights)
-    n_filters, kernel_size = weights.shape
+    n_filters, kernel_size = _filterbank(weights).shape
     n_frames = _n_frames(sample_count, kernel_size, hop)
-    wt = weights.to(segments.dtype).t().contiguous()  # [K, F]
-    _launch_ready(segments, wt)
     out = torch.empty((n, n_filters, n_frames), dtype=segments.dtype,
                       device=segments.device)
     lib = load_library()
-    status = lib.bn_filterbank_logpower(
-        _DTYPE_CODES[segments.dtype], segments.data_ptr(), wt.data_ptr(),
-        out.data_ptr(), n, sample_count, kernel_size, hop, n_filters,
-        n_frames, float(eps), torch.cuda.current_stream(segments.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(segments.device).cuda_stream
+    if segments.dtype == torch.bfloat16:
+        wpack = _packed_filterbank(weights)
+        _launch_ready(segments, wpack)
+        status = lib.bn_filterbank_logpower_bf16(
+            segments.data_ptr(), wpack.data_ptr(), out.data_ptr(), n, sample_count,
+            kernel_size, hop, n_filters, 8 * wpack.shape[2], wpack.shape[0], n_frames,
+            float(eps), stream,
+        )
+        _check_span(status, hop, kernel_size, n_filters, stft=False)
+    else:
+        wt = _filterbank(weights).float().t().contiguous()  # [K, F]
+        _launch_ready(segments, wt)
+        status = lib.bn_filterbank_logpower_f32(
+            segments.data_ptr(), wt.data_ptr(), out.data_ptr(), n, sample_count,
+            kernel_size, hop, n_filters, n_frames, float(eps), stream,
+        )
     check(status, "filterbank_logpower kernel")
     LAUNCHES["filterbank_logpower"] += 1
     return out
@@ -178,22 +294,57 @@ def stft_bases(window: np.ndarray, mel: np.ndarray
     return bc, bs, np.array(mel[lo_bin:hi_bin])
 
 
-@functools.lru_cache(maxsize=8)
-def _device_bases(window_bytes: bytes, mel_bytes: bytes, mel_shape,
-                  dtype: torch.dtype, device: torch.device):
-    window = np.frombuffer(window_bytes, np.float32)
-    mel = np.frombuffer(mel_bytes, np.float32).reshape(mel_shape)
-    return tuple(
-        torch.from_numpy(a).to(device=device, dtype=dtype)
-        for a in stft_bases(window, mel)
+def pack_stft_operands(bc: np.ndarray, bs: np.ndarray, mel_used: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """B1's B operands from :func:`stft_bases`' ``(bc, bs, mel_used)``, each
+    chunk in :func:`core_matrix_order` and one contiguous copy:
+
+    - ``bases [ceil(bins/64), ceil(K/64), 16, 8, 8, 8]``: for bin chunk j
+      and tap chunk c, 128 columns of 64 taps: the cos columns of bins
+      64j..64j+63, then the sin columns of the same bins;
+    - ``mel [groups, ceil(bins/64), cols/8, 8, 8, 8]``: the mel rows of
+      chunk j's 64 bins as ``cols`` mel columns of 64 bins (see
+      :func:`col_groups`).
+
+    Taps, bins and mels are zero-padded; float32, as given."""
+    flen, bins = bc.shape
+    n_mels = mel_used.shape[1]
+    chunks = -(-bins // MMA_BINS)
+    taps = -(-flen // MMA_TAPS) * MMA_TAPS
+    cs = np.zeros((2, taps, chunks * MMA_BINS), np.float32)
+    cs[0, :flen, :bins] = bc
+    cs[1, :flen, :bins] = bs
+    # [cos|sin, tap chunk, tap, bin chunk, bin] -> [bin chunk, tap chunk, cos|sin, bin, tap]
+    bases = cs.reshape(2, taps // MMA_TAPS, MMA_TAPS, chunks, MMA_BINS).transpose(3, 1, 0, 4, 2)
+    groups, cols = col_groups(n_mels)
+    mp = np.zeros((chunks * MMA_BINS, groups * cols), np.float32)
+    mp[:bins, :n_mels] = mel_used
+    # [bin chunk, bin, group, mel] -> [group, bin chunk, mel, bin]
+    melp = mp.reshape(chunks, MMA_BINS, groups, cols).transpose(2, 0, 3, 1)
+    bases = bases.reshape(chunks, taps // MMA_TAPS, 2 * MMA_BINS, MMA_TAPS)
+    return (np.ascontiguousarray(core_matrix_order(bases)),
+            np.ascontiguousarray(core_matrix_order(melp)))
+
+
+def _bases_for(window, mel, dtype, device, packed=False):
+    """:func:`stft_bases` (or, ``packed``, :func:`pack_stft_operands`) in
+    ``dtype`` on ``device``, cached by content."""
+    window = np.asarray(window, np.float32).reshape(-1)
+    mel = np.asarray(mel, np.float32)
+    device = torch.device(device)
+
+    def make():
+        arrays = stft_bases(window, mel)
+        if packed:
+            arrays = pack_stft_operands(*arrays)
+        operands = tuple(torch.from_numpy(a).to(device=device, dtype=dtype) for a in arrays)
+        return ("stft", window.copy(), mel.copy(), dtype, device, packed), operands
+
+    return _cached(
+        lambda key: (key[0] == "stft" and key[3:] == (dtype, device, packed)
+                     and np.array_equal(key[1], window) and np.array_equal(key[2], mel)),
+        make,
     )
-
-
-def _bases_for(window, mel, dtype, device):
-    window = np.ascontiguousarray(window, np.float32).reshape(-1)
-    mel = np.ascontiguousarray(mel, np.float32)
-    return _device_bases(window.tobytes(), mel.tobytes(), mel.shape, dtype,
-                         torch.device(device))
 
 
 def stft_melspec_plain(segments: torch.Tensor, window, mel, *, hop: int,
@@ -221,21 +372,31 @@ def segments_stft_melspec(segments: torch.Tensor, window, mel, *, hop: int,
     _check_segments(segments)
     if segments.device.type == "cpu":
         return stft_melspec_plain(segments, window, mel, hop=hop, eps=eps)
-    bc, bs, mel_used = _bases_for(window, mel, segments.dtype, segments.device)
     n, sample_count = segments.shape
-    flen, bins = bc.shape
-    n_mels = mel_used.shape[1]
+    flen = int(np.asarray(window).size)
+    n_mels = int(np.asarray(mel).shape[-1])
     n_frames = _n_frames(sample_count, flen, hop)
-    _launch_ready(segments, bc, bs, mel_used)
     out = torch.empty((n, n_mels, n_frames), dtype=segments.dtype,
                       device=segments.device)
     lib = load_library()
-    status = lib.bn_stft_melspec(
-        _DTYPE_CODES[segments.dtype], segments.data_ptr(), bc.data_ptr(),
-        bs.data_ptr(), mel_used.data_ptr(), out.data_ptr(), n, sample_count,
-        flen, hop, bins, n_mels, n_frames, float(eps),
-        torch.cuda.current_stream(segments.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(segments.device).cuda_stream
+    if segments.dtype == torch.bfloat16:
+        bases, melp = _bases_for(window, mel, segments.dtype, segments.device, packed=True)
+        _launch_ready(segments, bases, melp)
+        status = lib.bn_stft_melspec_bf16(
+            segments.data_ptr(), bases.data_ptr(), melp.data_ptr(), out.data_ptr(), n,
+            sample_count, flen, hop, n_mels, bases.shape[0], 8 * melp.shape[2],
+            melp.shape[0], n_frames, float(eps), stream,
+        )
+        _check_span(status, hop, flen, n_mels, stft=True)
+    else:
+        bc, bs, mel_used = _bases_for(window, mel, segments.dtype, segments.device)
+        _launch_ready(segments, bc, bs, mel_used)
+        status = lib.bn_stft_melspec_f32(
+            segments.data_ptr(), bc.data_ptr(), bs.data_ptr(), mel_used.data_ptr(),
+            out.data_ptr(), n, sample_count, flen, hop, bc.shape[1], n_mels, n_frames,
+            float(eps), stream,
+        )
     check(status, "stft_melspec kernel")
     LAUNCHES["stft_melspec"] += 1
     return out

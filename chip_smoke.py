@@ -18,8 +18,13 @@ exits non-zero:
              stage-prefix kernel (B4) at the full-width six-block geometry
              on [32, 1, 96, 511] in bf16 with and without fast_act and in
              float32; the framed-audio frontend (B5) on a 32-segment int16
-             buffer at step 144000 and 72000; times each kernel and its
-             plain version with CUDA events.
+             buffer at step 144000 and 72000; times each kernel, its
+             plain version and one PyTorch call computing the kernel's
+             product on the same operands (library_ms, the yardstick: the
+             port never calls it) as device time (a CUDA graph of 10
+             calls replayed, CUDA events), beside the least time the card
+             could take (bound_ms, from this run's shapes and the H100's
+             published peaks).
 4. slice   — generates full-width BirdNET v2.4 ONNX files (conv and STFT
              frontends, 6522 species, random weights from a seed), builds a
              Classifier on each at precision "fast", runs predict and
@@ -34,7 +39,10 @@ exits non-zero:
              (the last zero-padded, as the stream pads it);
              prints sustained segments/s at tile 32, 64 and 128, for int16
              against float32 input, and BIRDNET_STAGE123_SPLIT=0 against
-             the default, each pair in turns.
+             the default, each pair in turns; then profiles one streamed
+             hour per form at the default tile (torch.profiler: the
+             device's busy time, its idle share and the largest device
+             items).
 6. int8    — on the same files, builds int8 Classifiers (synthetic
              calibration) at "fast" (B1 or B2, and B3) and at "mixed" (B3),
              runs predict and predict_batch(32) and checks that the kernels
@@ -145,6 +153,10 @@ PREFIX_BLOCKS = [
 # and top-2 confidences differ by more than it.
 HOUR = 3600 * 48_000
 STREAM_CONF_TOL = 1e-3
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W):
+# the rates of bound_ms.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 
 def reset_launches() -> None:
@@ -176,21 +188,44 @@ def within(got: torch.Tensor, want: torch.Tensor, dtype) -> tuple:
 
 
 def time_ms(fn, reps: int = 10) -> float:
-    """Mean milliseconds per call, CUDA events around ``reps`` calls."""
-    for _ in range(2):
-        fn()
+    """Device milliseconds per call: ``reps`` calls captured in one CUDA
+    graph and replayed, CUDA events around the replay, after one warm call
+    and one warm replay. The host's work for each call (the wrapper, the
+    launch) runs at capture, so this is the time the card spends, the
+    figure bound_ms bounds."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
 
+def bound(bytes_moved: float, ops: dict) -> dict:
+    """The least time the card could take for a kernel's work: the larger
+    of the bytes it must move (each input read once, each output written
+    once) over the memory rate and, per operand type, its operations over
+    that type's peak (``ops``: type -> operations)."""
+    mem_s = bytes_moved / HBM_BYTES_PER_S
+    ops_s = max(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
+    return {"bound_ms": 1e3 * max(mem_s, ops_s),
+            "bound_by": "bytes" if mem_s >= ops_s else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def kernel_vs_plain_ms(run, plain) -> tuple:
-    """(kernel ms, plain ms), CUDA events in turns kernel, plain, plain,
-    kernel."""
+    """(kernel ms, plain ms) of device time (time_ms), in turns kernel,
+    plain, plain, kernel."""
     k1, p1, p2, k2 = time_ms(run), time_ms(plain), time_ms(plain), time_ms(run)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
@@ -218,6 +253,28 @@ def phase_build() -> None:
     build.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": path.name})
+
+
+def frontend_yardsticks(name, x, window, mel, weights, out) -> dict:
+    """B1's or B2's library call and bound on the bf16 main-path inputs.
+    The library call is one bf16 matmul of the frames, materialised
+    beforehand and not timed, with the kernel's B operand: B1's cos|sin
+    bases ``[1024, 2 bins]``, B2's filterbank ``[1024, F]``."""
+    frames = x.unfold(-1, FLEN, HOP).reshape(-1, FLEN).contiguous()
+    n_rows = frames.shape[0]
+    if name == "stft_melspec":
+        bc, bs, mel_used = fe.stft_bases(window, mel)
+        rhs = torch.from_numpy(np.concatenate([bc, bs], 1)).to(x.device, x.dtype)
+        bins = bc.shape[1]
+        ops = n_rows * (2 * 2 * FLEN * bins + 2 * bins * N_MELS)
+        moved = nbytes(x, rhs, out) + bins * N_MELS * x.element_size()
+    else:
+        rhs = weights[:, 0, :].t().contiguous().to(x.dtype)
+        ops = 2 * n_rows * FLEN * N_MELS
+        moved = nbytes(x, rhs, out)
+    return {"library_ms": time_ms(lambda: torch.matmul(frames, rhs)),
+            "library": f"torch.matmul bf16 {list(frames.shape)} x {list(rhs.shape)}",
+            **bound(moved, {"bf16": ops})}
 
 
 def phase_kernels(dev) -> dict:
@@ -262,11 +319,16 @@ def phase_kernels(dev) -> dict:
             line.update(ms=ms, plain_ms=plain_ms,
                         us_per_segment=1e3 * ms / N_SEG,
                         plain_us_per_segment=1e3 * plain_ms / N_SEG)
+            if dtype == torch.bfloat16:  # the dtype the main path runs
+                line.update(frontend_yardsticks(name, x, window, mel, weights, got))
+                line["share_of_bound"] = line["bound_ms"] / ms
             emit(line)
             if not line["ok"]:
                 raise AssertionError(f"{name} ({dtype}) disagrees: {line}")
-            if dtype == torch.bfloat16:  # the dtype the main path runs
-                summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            if dtype == torch.bfloat16:
+                summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 **{k: line[k] for k in ("library_ms", "library", "bound_ms",
+                                                         "bound_by")}}
     summary["qconv1x1_requant"] = phase_qconv(dev)
     summary["stage_stack_forward"] = phase_stage_prefix(dev)
     summary["frame_filterbank_logpower"] = phase_frame_filterbank(dev, weights)
@@ -316,8 +378,29 @@ def phase_stage_prefix(dev) -> dict:
         if not ok:
             raise AssertionError(f"stage_stack_forward disagrees with its plain version: {line}")
         if summary is None:
-            summary = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            summary = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                       "library": "none: no one PyTorch call computes the stem and six "
+                                  "MBConv blocks; the stream phase's split-0 rates "
+                                  "compare B4 with the eager prefix",
+                       **prefix_bound(x, got, tables)}
     return summary
+
+
+def prefix_bound(x, out, tables) -> dict:
+    """B4's bound on [N, 1, 96, 511]: the 1x1 expand and project products
+    on the bf16 tensor cores, the stem, depthwise and squeeze-excite
+    products on the f32 SIMT units; each input (image, weights) read and the
+    output written once."""
+    n, _, h, w = x.shape
+    h, w = -(-h // 2), -(-w // 2)  # the stem's stride 2
+    mma, simt = 0, tables.stem_w.shape[0] * 9 * h * w  # MACs; the stem's
+    for c_in, c_mid, c_se, c_out, stride, _ in PREFIX_BLOCKS:
+        mma += c_in * c_mid * h * w
+        h, w = -(-h // stride), -(-w // stride)
+        simt += 9 * c_mid * h * w + 2 * c_mid * c_se
+        mma += c_mid * c_out * h * w
+    weights = [tables.stem_w, tables.stem_b, *(t for block in tables.tables for t in block)]
+    return bound(nbytes(x, out, *weights), {"bf16": 2 * n * mma, "fp32": 2 * n * simt})
 
 
 def phase_frame_filterbank(dev, weights) -> dict:
@@ -354,7 +437,17 @@ def phase_frame_filterbank(dev, weights) -> dict:
         if not ok:
             raise AssertionError(f"frame_filterbank_logpower disagrees with its plain version: {line}")
         if summary is None:
-            summary = {"ms": ms, "plain_ms": plain_ms}
+            # The library call: one f32 matmul (TF32 off) of the scaled
+            # frames, materialised beforehand and not timed.
+            span = (511 - 1) * HOP + FLEN
+            frames = (audio.float() / 32768.0).unfold(0, span, step)[:N_SEG].unfold(
+                1, FLEN, HOP).reshape(-1, FLEN).contiguous()
+            wt = w.t().contiguous()
+            summary = {"ms": ms, "plain_ms": plain_ms,
+                       "library_ms": time_ms(lambda: torch.matmul(frames, wt)),
+                       "library": f"torch.matmul f32 {list(frames.shape)} x {list(wt.shape)}",
+                       **bound(nbytes(audio, w, got),
+                               {"fp32": 2 * N_SEG * 511 * FLEN * N_MELS})}
     summary["max_abs_err"] = worst
     return summary
 
@@ -426,9 +519,20 @@ def phase_qconv(dev) -> dict:
             raise AssertionError(f"qconv1x1_requant disagrees with its plain version: {line}")
         worst = max(worst, max_diff)
         if summary is None:
-            summary = {"ms": ms, "plain_ms": plain_ms}
+            summary = {"ms": ms, "plain_ms": plain_ms, **qconv_yardsticks(x, w, bias, scale, got)}
     summary["max_abs_err"] = worst
     return summary
+
+
+def qconv_yardsticks(x, w, bias, scale, out) -> dict:
+    """B3's library call, ``torch._int_mm`` on ``[B·N, C_in] x [C_in,
+    C_out]`` (the activations transposed beforehand, not timed; the first
+    QCONV_SHAPES case meets its shape rules), and its bound."""
+    b, c_in, n = x.shape
+    xt = x.permute(0, 2, 1).reshape(-1, c_in).contiguous()
+    return {"library_ms": time_ms(lambda: torch._int_mm(xt, w.t())),
+            "library": f"torch._int_mm {list(xt.shape)} x {[c_in, w.shape[0]]}",
+            **bound(nbytes(x, w, bias, scale, out), {"int8": 2 * b * n * c_in * w.shape[0]})}
 
 
 def seg_per_s(clf, segs, calls: int = 10) -> float:
@@ -620,7 +724,51 @@ def phase_stream(card: str, fast: dict) -> dict:
               "segments": HOUR // S, "default_tile": default_tile,
               "seg_per_s_by_tile": tiles, "seg_per_s_by_input": inputs,
               "seg_per_s_by_split": split})
+    for frontend, clf in fast.items():
+        emit({"phase": "stream_profile", "frontend": frontend, "card": card,
+              "tile": default_tile, **stream_profile(clf, pcm)})
     return launches
+
+
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def stream_profile(clf, pcm) -> dict:
+    """torch.profiler over one analyze_samples call: its wall time, the
+    device's busy time (the union of its kernel, copy and set intervals),
+    the idle share 1 - busy / wall, and the ten device items with the most
+    time (ms, launches). The profiler slows the host, so the profiled wall
+    time runs above the unprofiled one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        clf.analyze_samples(pcm)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "stream.json")
+        prof.export_chrome_trace(trace)
+        events = json.loads(Path(trace).read_text())["traceEvents"]
+    spans, by_name = [], {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES:
+            spans.append((e["ts"], e["ts"] + e["dur"]))
+            total, count = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (total + e["dur"], count + 1)
+    busy, end = 0.0, -1.0
+    for s, t in sorted(spans):
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    if busy <= 0.0:
+        raise AssertionError("stream profile: no device interval in the trace")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / 1e3 / wall_ms,
+            "top_device_items_ms": [(name[:90], total / 1e3, count)
+                                    for name, (total, count) in top]}
 
 
 def int8_agreement(ref: np.ndarray, logits: np.ndarray) -> dict:
@@ -797,7 +945,9 @@ def main() -> int:
         kernels.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
                         "replaces": REPLACES[kname], "launches": launches[kname],
                         "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                        "plain_ms": s["plain_ms"]})
+                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                        "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+                        "library": s["library"]})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -36,9 +36,9 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _segments(n, dev, dtype):
+def _segments(n, dev, dtype, samples=S):
     rng = np.random.default_rng(0)
-    x = torch.from_numpy((rng.normal(size=(n, S)) * 0.1).astype(np.float32))
+    x = torch.from_numpy((rng.normal(size=(n, samples)) * 0.1).astype(np.float32))
     return x.to(dev).to(dtype)
 
 
@@ -51,38 +51,113 @@ def _close(got, want, dtype):
     return bool(torch.all((got - want).abs() <= 2 ** -6 * want.abs() + 1e-2))
 
 
+# (S, hop, M, N) of the frontend kernels, reaching each load path of the
+# bf16 tensor-core kernels: v2.4 (ldmatrix A rows, conflict free); hop 312
+# with one segment; hop 320 (ldmatrix rows on one bank) with 128 mels or
+# filters on 160000 samples (497 frames, not a multiple of the 128-frame
+# tile); an odd hop on an odd length (16-bit loads; segment n starts at
+# element n * 6007, not 16-byte aligned); hop 700 (16-bit loads: its rows
+# start 8-byte aligned), where B1's span of 128 frames does not fit, so its
+# CTA takes one warpgroup of 64 frames.
+FRONTEND_GEOMETRIES = [
+    pytest.param(S, HOP, M, 4, id="v24"),
+    pytest.param(S, 312, M, 1, id="hop312-n1"),
+    pytest.param(160_000, 320, 128, 2, id="hop320-m128-s160000"),
+    pytest.param(160_000, 312, 96, 2, id="hop312-s160000"),
+    pytest.param(6007, 277, 96, 3, id="hop277-s6007"),
+    pytest.param(S, 700, M, 2, id="hop700-one-warpgroup"),
+]
+
+
+@pytest.mark.parametrize("S_,hop,m,n", FRONTEND_GEOMETRIES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_stft_melspec_kernel_matches_plain(dev, dtype):
+def test_stft_melspec_kernel_matches_plain(dev, dtype, S_, hop, m, n):
     win = (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(FLEN) / FLEN)).astype(np.float32)
-    mel = mel_weight_matrix(M, FLEN, 48_000, 150.0, 15_000.0).astype(np.float32)
-    x = _segments(4, dev, dtype)
-    got = fe.segments_stft_melspec(x, win, mel, hop=HOP)
+    mel = mel_weight_matrix(m, FLEN, 48_000, 150.0, 15_000.0).astype(np.float32)
+    x = _segments(n, dev, dtype, S_)
+    got = fe.segments_stft_melspec(x, win, mel, hop=hop)
     torch.cuda.synchronize()
     assert fe.LAUNCHES["stft_melspec"] == 1
-    want = fe.stft_melspec_plain(x, win, mel, hop=HOP)
-    assert got.shape == want.shape == (4, M, 511) and got.dtype == dtype
+    want = fe.stft_melspec_plain(x, win, mel, hop=hop)
+    assert got.shape == want.shape == (n, m, (S_ - FLEN) // hop + 1) and got.dtype == dtype
     assert _close(got, want, dtype)
     if dtype == torch.float32:
-        oracle = fe.stft_melspec_reference(x[:2].cpu().numpy(), win, mel, hop=HOP)
+        oracle = fe.stft_melspec_reference(x[:2].cpu().numpy(), win, mel, hop=hop)
         assert _close(got[:2].cpu(), torch.from_numpy(oracle), dtype)
 
 
+@pytest.mark.parametrize("S_,hop,m,n", FRONTEND_GEOMETRIES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_filterbank_logpower_kernel_matches_plain(dev, dtype):
+def test_filterbank_logpower_kernel_matches_plain(dev, dtype, S_, hop, m, n):
     rng = np.random.default_rng(1)
-    w = torch.from_numpy((rng.normal(size=(M, 1, FLEN)) * 0.02).astype(np.float32)).to(dev)
-    x = _segments(4, dev, dtype)
-    got = fe.segments_filterbank_logpower(x, w, hop=HOP)
+    w = torch.from_numpy((rng.normal(size=(m, 1, FLEN)) * 0.02).astype(np.float32)).to(dev)
+    x = _segments(n, dev, dtype, S_)
+    got = fe.segments_filterbank_logpower(x, w, hop=hop)
     torch.cuda.synchronize()
     assert fe.LAUNCHES["filterbank_logpower"] == 1
-    want = fe.filterbank_logpower_plain(x, w, hop=HOP)
-    assert got.shape == want.shape == (4, M, 511) and got.dtype == dtype
+    want = fe.filterbank_logpower_plain(x, w, hop=hop)
+    assert got.shape == want.shape == (n, m, (S_ - FLEN) // hop + 1) and got.dtype == dtype
     assert _close(got, want, dtype)
     if dtype == torch.float32:
         oracle = fe.filterbank_logpower_reference(
-            x[:2].cpu().numpy(), w.cpu().numpy(), hop=HOP
+            x[:2].cpu().numpy(), w.cpu().numpy(), hop=hop
         )
         assert _close(got[:2].cpu(), torch.from_numpy(oracle), dtype)
+
+
+@pytest.mark.parametrize("stft,limit", [(True, 1209), (False, 1437)])
+def test_bf16_kernels_refuse_a_span_too_large(dev, stft, limit):
+    """Where the bf16 kernels' hop limit lies at 1024 taps and 96 mels or
+    filters (the samples of 64 frames beside the B ring in 227 KB of shared
+    memory): at the limit the kernel runs and agrees with its plain version,
+    one sample above it the wrapper raises and launches nothing."""
+    assert fe.bf16_max_hop(FLEN, M, stft=stft) == limit
+    win = np.hanning(FLEN).astype(np.float32)
+    mel = mel_weight_matrix(M, FLEN, 48_000, 150.0, 15_000.0).astype(np.float32)
+    w = torch.from_numpy((np.random.default_rng(2).normal(size=(M, 1, FLEN)) * 0.02)
+                         .astype(np.float32)).to(dev)
+    x = _segments(2, dev, torch.bfloat16)
+    if stft:
+        run = lambda hop: fe.segments_stft_melspec(x, win, mel, hop=hop)
+        plain = lambda hop: fe.stft_melspec_plain(x, win, mel, hop=hop)
+        counter = "stft_melspec"
+    else:
+        run = lambda hop: fe.segments_filterbank_logpower(x, w, hop=hop)
+        plain = lambda hop: fe.filterbank_logpower_plain(x, w, hop=hop)
+        counter = "filterbank_logpower"
+    assert _close(run(limit), plain(limit), torch.bfloat16)
+    assert fe.LAUNCHES[counter] == 1
+    with pytest.raises(ValueError, match=f"hop {limit + 1}.*up to {limit}"):
+        run(limit + 1)
+    assert fe.LAUNCHES[counter] == 1
+
+
+@pytest.mark.parametrize("frontend,hop", [("conv", 1500), ("stft", 1300)])
+def test_classifier_refuses_a_hop_too_large_at_build(dev, tmp_path, frontend, hop):
+    """A fast Classifier whose frontend hop is above the bf16 kernel's limit
+    fails in build() (its validation forward), naming the hop, and not at
+    its first predict; at fp32, which interprets the frontend's body, the
+    same file builds."""
+    from birdnet_tpu_torch import Classifier
+    from birdnet_tpu_torch.errors import ModelLoadError
+    from birdnet_tpu_torch.models._builder import (
+        GraphBuilder, learned_frontend, stft_mel_frontend)
+    from birdnet_tpu_torch.onnx import proto as P
+
+    gb = GraphBuilder("hop_limit", seed=0)
+    if frontend == "conv":
+        img, _ = learned_frontend(gb, "input", S, n_filters=M, stride=hop)
+    else:
+        img, _ = stft_mel_frontend(gb, "input", S, sample_rate=48_000, hop=hop, n_mels=M)
+    gb.gemm(gb.gap(img), 1, 10, name="output")
+    path = tmp_path / f"hop{hop}_{frontend}.onnx"
+    P.save_model(gb.build(
+        inputs=[P.make_value_info("input", P.DataType.FLOAT, ["batch", S])],
+        outputs=[P.make_value_info("output", P.DataType.FLOAT, ["batch", 10])]), str(path))
+    builder = lambda: Classifier.builder().model_path(path).labels([f"s{i}" for i in range(10)])
+    with pytest.raises(ModelLoadError, match=f"hop {hop}"):
+        builder().precision("fast").build()
+    assert builder().precision("fp32").build().device == dev
 
 
 @pytest.mark.parametrize("frontend,counter", [

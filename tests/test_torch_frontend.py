@@ -18,11 +18,12 @@ from birdnet_tpu_torch.ops.cuda import build  # noqa: E402
 from birdnet_tpu_torch.ops.cuda import frontend as tfe  # noqa: E402
 
 # (S, hop, flen/K, M, N): the BirdNET geometry cut to 9000 samples, a hop
-# coprime with everything, and v3.0's hop.
+# coprime with everything, v3.0's hop, and Perch's 128 mels.
 GEOMETRIES = [
     pytest.param(9000, 280, 1024, 24, 3, id="v24-hop280"),
     pytest.param(6007, 277, 512, 16, 2, id="coprime-hop277"),
     pytest.param(9000, 320, 1024, 24, 2, id="v30-hop320"),
+    pytest.param(9000, 320, 1024, 128, 1, id="perch-mel128"),
 ]
 
 # float32: the existing Pallas tests' bound in log space (1e-3 rel/abs);
@@ -59,6 +60,12 @@ def _banded_mel(flen, M):
 
 def _weights(K, F, seed=1):
     return (np.random.default_rng(seed).normal(size=(F, 1, K)) * 0.02).astype(np.float32)
+
+
+def _core_matrix_rows(a):
+    """The inverse of tfe.core_matrix_order: ``[..., cols, 64]``."""
+    *lead, groups, kgroups, rows, taps = a.shape
+    return a.swapaxes(-3, -2).reshape(*lead, groups * rows, kgroups * taps)
 
 
 def _as_f32(x):
@@ -155,6 +162,148 @@ def test_stft_bases_match_jax_construction():
     )
     np.testing.assert_array_equal(bc, (np.cos(ang) * win[:, None].astype(np.float64)).astype(np.float32))
     np.testing.assert_array_equal(bs, (np.sin(ang) * win[:, None].astype(np.float64)).astype(np.float32))
+
+
+@pytest.mark.parametrize("F,K", [(24, 512), (96, 1024), (128, 1000), (160, 1024)])
+def test_pack_filterbank_reproduces_the_filterbank(F, K):
+    """B2's packed operand [groups, K/64, cols, 64] holds W [F, K] with
+    zero padding: unpacked it is W, and zero past F and K."""
+    w = torch.from_numpy(_weights(K, F))
+    packed = tfe.pack_filterbank(w)
+    groups, cols = tfe.col_groups(F)
+    taps = -(-K // 64) * 64
+    assert tuple(packed.shape) == (groups, taps // 64, cols // 8, 8, 8, 8)
+    assert packed.is_contiguous() and cols % 32 == 0 and cols <= 128 and groups * cols >= F
+    # Core matrix (column group q, tap group r) holds columns 8q.. x taps 8r..
+    assert torch.equal(packed[0, 0, 1, 2], w[8:16, 0, 16:24])
+    flat = _core_matrix_rows(packed).permute(0, 2, 1, 3).reshape(groups * cols, taps)
+    assert torch.equal(flat[:F, :K], w[:, 0])
+    assert not flat[F:].any() and not flat[:, K:].any()
+
+
+def _unpack_stft(bases, melp):
+    """(cos [taps, bins_p], sin [taps, bins_p], mel [bins_p, groups*cols])
+    from pack_stft_operands' layout."""
+    bases, melp = _core_matrix_rows(bases), _core_matrix_rows(melp)
+    chunks, kchunks, _, _ = bases.shape
+    b = bases.reshape(chunks, kchunks, 2, 64, 64).transpose(2, 1, 4, 0, 3)
+    b = b.reshape(2, kchunks * 64, chunks * 64)
+    groups, _, cols, _ = melp.shape
+    mel = melp.transpose(1, 3, 0, 2).reshape(chunks * 64, groups * cols)
+    return b[0], b[1], mel
+
+
+@pytest.mark.parametrize("S,hop,flen,M,N", GEOMETRIES)
+def test_pack_stft_operands_reproduces_the_bases(S, hop, flen, M, N):
+    """B1's packed operands hold stft_bases' cos/sin bases and mel rows
+    with zero padding, cos of a chunk's 64 bins before their sin."""
+    bc, bs, mel_used = tfe.stft_bases(_hann(flen), _banded_mel(flen, M))
+    bases, melp = tfe.pack_stft_operands(bc, bs, mel_used)
+    bins = bc.shape[1]
+    groups, cols = tfe.col_groups(M)
+    assert bases.shape == (-(-bins // 64), -(-flen // 64), 16, 8, 8, 8)
+    assert melp.shape == (groups, bases.shape[0], cols // 8, 8, 8, 8)
+    cos, sin, mel = _unpack_stft(bases, melp)
+    np.testing.assert_array_equal(cos[:flen, :bins], bc)
+    np.testing.assert_array_equal(sin[:flen, :bins], bs)
+    np.testing.assert_array_equal(mel[:bins, :M], mel_used)
+    for pad in (cos[flen:], cos[:, bins:], sin[flen:], sin[:, bins:], mel[bins:], mel[:, M:]):
+        assert not pad.any()
+
+
+def _frames_padded(x, flen, hop, taps):
+    return torch.nn.functional.pad(x.float().unfold(-1, flen, hop), (0, taps - flen))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,hop,flen,M,N", GEOMETRIES)
+def test_stft_through_packed_operands_matches_plain(S, hop, flen, M, N, dtype):
+    """B1 computed as the tensor-core kernel does, from its packed operands
+    in the compute dtype: per 64-bin chunk c and s over the zero-padded
+    taps, the power rounded to the compute dtype, the mel product summed
+    over chunks. Within the plain version's tolerance (the sums run in
+    another order)."""
+    win, mel = _hann(flen), _banded_mel(flen, M)
+    x = torch.from_numpy(_segments(S, N)).to(dtype)
+    bases, melp = (_core_matrix_rows(torch.from_numpy(a).to(dtype).float())
+                   for a in tfe.pack_stft_operands(*tfe.stft_bases(win, mel)))
+    chunks, kchunks, _, _ = bases.shape
+    frames = _frames_padded(x, flen, hop, kchunks * 64)
+    fb = 0.0
+    for j in range(chunks):
+        cs = frames @ bases[j].permute(0, 2, 1).reshape(kchunks * 64, 128)
+        c, s = cs[..., :64], cs[..., 64:]
+        power = (c * c + s * s).to(dtype).float()
+        fb = fb + power @ melp[:, j].permute(2, 0, 1).reshape(64, -1)
+    got = torch.log(fb[..., :M] + 1e-6).to(dtype).transpose(1, 2)
+    want = tfe.stft_melspec_plain(x, win, mel, hop=hop)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(_as_f32(got), _as_f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,hop,flen,M,N", GEOMETRIES)
+def test_filterbank_through_packed_operand_matches_plain(S, hop, flen, M, N, dtype):
+    """B2 computed from its packed filterbank in the compute dtype over the
+    zero-padded taps: the plain version, within its tolerance."""
+    w = torch.from_numpy(_weights(flen, M))
+    x = torch.from_numpy(_segments(S, N)).to(dtype)
+    packed = _core_matrix_rows(tfe.pack_filterbank(w.to(dtype)).float())
+    groups, kchunks, cols, _ = packed.shape
+    flat = packed.permute(0, 2, 1, 3).reshape(groups * cols, kchunks * 64)
+    y = (_frames_padded(x, flen, hop, kchunks * 64) @ flat.t())[..., :M]
+    got = torch.log(y * y + 1e-6).to(dtype).transpose(1, 2)
+    want = tfe.filterbank_logpower_plain(x, w, hop=hop)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(_as_f32(got), _as_f32(want), rtol=tol, atol=tol)
+
+
+def test_packed_filterbank_is_cached_per_tensor():
+    """The bf16 pack of a filterbank is made once while the tensor lives
+    and is unchanged; an in-place change packs it again."""
+    w = torch.from_numpy(_weights(512, 24))
+    first = tfe._packed_filterbank(w)
+    assert first.dtype == torch.bfloat16 and tfe._packed_filterbank(w) is first
+    w.mul_(2.0)
+    again = tfe._packed_filterbank(w)
+    assert again is not first and torch.equal(again.float(), 2 * first.float())
+
+
+def test_packed_filterbank_of_an_inference_tensor_is_never_stale():
+    """An inference tensor has no version counter: its pack is built on
+    every call, so an in-place change is always seen."""
+    with torch.inference_mode():
+        w = torch.from_numpy(_weights(512, 24)).clone()
+    first = tfe._packed_filterbank(w)
+    with torch.inference_mode():
+        w.mul_(2.0)
+    again = tfe._packed_filterbank(w)
+    assert torch.equal(again.float(), 2 * first.float())
+    assert torch.equal(tfe._packed_filterbank(w), again)
+
+
+def test_operand_cache_keeps_the_newest_entries():
+    """B1's and B2's operands share one cache of the newest entries: an
+    entry pushed out is built again, an entry kept is found."""
+    win, mel = _hann(512), _banded_mel(512, 8)
+    first = tfe._bases_for(win, mel, torch.bfloat16, "cpu", packed=True)
+    banks = [torch.from_numpy(_weights(512, 8)) for _ in range(tfe._OPERANDS_KEPT)]
+    packs = [tfe._packed_filterbank(w) for w in banks]
+    assert tfe._bases_for(win, mel, torch.bfloat16, "cpu", packed=True) is not first
+    assert tfe._packed_filterbank(banks[-1]) is packs[-1]
+
+
+def test_stft_operands_are_cached_by_content():
+    """B1's operands are built once per (window, mel, dtype, device) and
+    found again from equal arrays; a changed bank gets its own."""
+    win, mel = _hann(512), _banded_mel(512, 8)
+    first = tfe._bases_for(win, mel, torch.bfloat16, "cpu", packed=True)
+    assert tfe._bases_for(win.copy(), mel.copy(), torch.bfloat16, "cpu", packed=True) is first
+    changed = mel.copy()
+    changed[40, 2] += 0.5
+    other = tfe._bases_for(win, changed, torch.bfloat16, "cpu", packed=True)
+    assert other is not first and not torch.equal(other[1], first[1])
+    assert tfe._bases_for(win, mel, torch.float32, "cpu") is not first
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
