@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..errors import ModelLoadError
+from ..runtime import device_or_default
 from ..onnx import proto as onnx_proto
 from ..onnx.proto import GraphProto, ModelProto
 from . import ops as op_registry
@@ -325,11 +326,13 @@ def consts_to_device(consts: Dict[str, np.ndarray],
 
 
 def make_forward(model: ImportedModel, precision: str = "fp32",
-                 device="cpu"):
+                 device=None):
     """Build the eager forward ``fn(params, *inputs) -> tuple(outputs)``.
 
     ``params`` is :func:`params_to_torch` of ``model.params`` and the
-    inputs are tensors on ``device``. ``precision``: ``fp32`` | ``mixed`` |
+    inputs are tensors on ``device`` (default ``cuda:0``; without CUDA that
+    raises :class:`RuntimeInitError`, so a host run passes ``"cpu"``).
+    ``precision``: ``fp32`` | ``mixed`` |
     ``fast`` | ``bf16`` (see :mod:`birdnet_tpu_torch.compiler.ops`).
 
     TF32 is turned off for matmuls and cuDNN convolutions
@@ -344,7 +347,7 @@ def make_forward(model: ImportedModel, precision: str = "fp32",
     _validate_ops(model)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = torch.device(device)
+    device = device_or_default(device)
     graph, opset = model.graph, model.opset
     input_names, output_names = model.input_names, model.output_names
     consts = consts_to_device(model.consts, device)

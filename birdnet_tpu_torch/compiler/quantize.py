@@ -121,20 +121,22 @@ def _collect_absmax(
     calibration: Sequence[Tuple],
     names: set,
     graph=None,
-    device="cpu",
+    device=None,
 ) -> Dict[str, float]:
     """Interpret the graph per calibration batch; track abs-max of ``names``.
 
     Calibration runs eagerly op by op at ``fp32`` on ``device`` (the
-    classifier's device), with TF32 off as ``make_forward`` sets it; only
-    each tensor's maximum comes back to the host."""
+    classifier's device; default ``cuda:0``, raising without CUDA), with
+    TF32 off as ``make_forward`` sets it; only each tensor's maximum comes
+    back to the host."""
     import torch
 
+    from ..runtime import device_or_default
     from .importer import consts_to_device, params_to_torch
 
+    device = device_or_default(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = torch.device(device)
     consts = consts_to_device(model.consts, device)
     params = params_to_torch(model.params, device)
     stats: Dict[str, float] = {}
@@ -172,7 +174,7 @@ def quantize_model(
     calibration: Sequence,
     per_channel: bool = True,
     quantize_first_layer: bool = False,
-    device="cpu",
+    device=None,
 ) -> ImportedModel:
     """Return a new int8-quantized :class:`ImportedModel`.
 

@@ -8,12 +8,14 @@
 //     _filterbank_body, _assemble_patch);
 //   - stft_melspec_mma_kernel (bf16) and stft_melspec_kernel (f32) replace
 //     segments_stft_melspec (_kernel_stft_prefolded);
-//   - frame_filterbank_logpower_kernel replaces frame_filterbank_logpower
-//     (_kernel_row_aligned, _kernel_flat): B2's f32 body over n windows at
-//     offset i * step of one float32 or int16 buffer, the samples scaled in
-//     the kernel, the product in f32 (the TPU kernel's HIGHEST dot), the
-//     output f32 [n, T, F]. Any hop and step: the TPU's hop % 128 rule is a
-//     Mosaic layout rule.
+//   - frame_filterbank_tf32_kernel replaces frame_filterbank_logpower
+//     (_kernel_row_aligned, _kernel_flat): the conv-form frontend over n
+//     windows at offset i * step of one float32 or int16 buffer, the
+//     samples scaled in the kernel, the product f32-accurate (the TPU
+//     kernel's HIGHEST dot, a multi-pass product there; split TF32 here),
+//     the output f32 [n, T, F]. Any step; hops up to
+//     bn_frame_filterbank_max_hop (the TPU's hop % 128 rule is a Mosaic
+//     layout rule).
 // Each computes what its TPU kernel computes, with the same rounding points:
 // the framed samples arrive in the compute type (f32 or bf16), every product
 // accumulates in f32, B1's power c*c + s*s is rounded to the compute type
@@ -62,7 +64,23 @@
 // The sums run in another order than the plain version's matmul; the
 // bf16 results agree with it within 2^-6 |plain| + 1e-2 (a flipped bf16
 // rounding of the power or of the output).
-// The f32 kernels keep SIMT f32 FMAs: their contract is the TPU's
+// B5 runs on the tensor cores in split TF32 ("3xTF32"): each operand x is
+// big + small with big = tf32(x) and small = tf32(x - big) (cvt.rna), and
+// the product sums big*big + big*small + small*big in f32. int16 samples
+// scaled by 2^-15 have 16 significant bits, so big + small is exact and
+// only the weights' small*small term is dropped (about 2^-22 relative).
+// It bounds B5 at 3 x 2 n T K F operations at 495 TFLOP/s (0.61 us per
+// segment at v2.4's geometry) against 0.15 us of bytes. The kernel follows
+// B2's: one CTA of up to two warpgroups per (window, frame tile, column
+// group) stages the tile's span once with cp.async, kept in the input's
+// type (int16 halves it) and scaled and split into TF32 A fragments as
+// they load; the B operand (w_big | w_small, packed on the host into 32-tap
+// chunks of core matrices, 24 KB per chunk at 96 filters) streams through
+// the 4-stage TMA ring; wgmma.m64nNk8.tf32 with A from registers; the
+// output goes straight from the accumulators to [n, T, F], two adjacent
+// filters per thread. Where a large hop's span of 64 frames would not fit,
+// a warpgroup covers 32 or 16 frames (its other rows are zero).
+// The f32 kernels of B1 and B2 keep SIMT f32 FMAs: their contract is the TPU's
 // Precision.HIGHEST, exact f32 products with no TF32. One block per
 // (segment, tile of 32 frames) stages the tile's samples in shared memory
 // once; each thread keeps a register block of (2 bins or filters) x (8 or
@@ -78,18 +96,9 @@
 #include <cstddef>
 #include <cstdint>
 
-namespace {
+#include "sm90.cuh"
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v);
-template <>
-__device__ __forceinline__ float to_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ float to_f32<short>(short v) {
-  return static_cast<float>(v);
-}
+namespace {
 
 // ---------------------------------------------------------------------------
 // f32 SIMT kernels
@@ -241,56 +250,6 @@ __global__ void stft_melspec_kernel(const float* __restrict__ seg,
   }
 }
 
-// B5: out[n, t, f] = log(y^2 + eps), y = sum_k (scale * audio[n * step +
-// t * hop + k]) * w[f, k], all in f32. The B2 body over one buffer: the
-// window's samples come straight from global memory at offset n * step.
-template <typename A>
-__global__ void frame_filterbank_logpower_kernel(
-    const A* __restrict__ audio, const float* __restrict__ wt,
-    float* __restrict__ out, long long audio_len, int step, int K, int hop,
-    int F, int n_frames, float eps, float scale) {
-  extern __shared__ float s_x[];
-  const int n = blockIdx.y;
-  const int t0 = blockIdx.x * kTileFrames;
-  const long long start = static_cast<long long>(n) * step + static_cast<long long>(t0) * hop;
-  const int span = tile_span(hop, K);
-  for (int i = threadIdx.x; i < span; i += blockDim.x) {
-    const long long g = start + i;
-    s_x[i] = g < audio_len ? __fmul_rn(to_f32<A>(audio[g]), scale) : 0.0f;
-  }
-  __syncthreads();
-
-  constexpr int kGroups = kTileFrames / kFbFramesPerThread;
-  const int half = (F + kColsPerThread - 1) / kColsPerThread;
-  for (int item = threadIdx.x; item < half * kGroups; item += blockDim.x) {
-    const int f0 = item % half;
-    const int f1 = f0 + half;
-    const int j0 = (item / half) * kFbFramesPerThread;
-    const bool has1 = f1 < F;
-    float acc0[kFbFramesPerThread] = {};
-    float acc1[kFbFramesPerThread] = {};
-    const float* xs = s_x + j0 * hop;
-    for (int k = 0; k < K; ++k) {
-      const float w0 = wt[static_cast<size_t>(k) * F + f0];
-      const float w1 = has1 ? wt[static_cast<size_t>(k) * F + f1] : 0.0f;
-#pragma unroll
-      for (int j = 0; j < kFbFramesPerThread; ++j) {
-        const float v = xs[j * hop + k];
-        acc0[j] = fmaf(v, w0, acc0[j]);
-        acc1[j] = fmaf(v, w1, acc1[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kFbFramesPerThread; ++j) {
-      const int t = t0 + j0 + j;
-      if (t >= n_frames) break;
-      float* row = out + (static_cast<size_t>(n) * n_frames + t) * F;
-      row[f0] = logf(__fadd_rn(__fmul_rn(acc0[j], acc0[j]), eps));
-      if (has1) row[f1] = logf(__fadd_rn(__fmul_rn(acc1[j], acc1[j]), eps));
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // bf16 tensor-core kernels
 // ---------------------------------------------------------------------------
@@ -304,7 +263,6 @@ constexpr int kStages = 4;              // B ring depth
 constexpr int kLookahead = kStages - 2; // chunks in flight ahead of the one the MMAs read
 constexpr int kStftCols = 128;          // B1 columns per chunk: cos 64 | sin 64
 constexpr int kMaxWarpgroups = 2;       // per CTA, sharing each B chunk; 64 frames each
-constexpr size_t kMaxSmem = 227 * 1024;
 // A B chunk in shared memory is [cols / 8][kMmaKc / 8] core matrices of 8
 // columns x 8 taps (128 contiguous bytes): wgmma's K-major layout without
 // swizzle. Neighbours along K are 128 bytes apart, along N 1024.
@@ -320,70 +278,17 @@ __host__ __device__ __forceinline__ int ring_elems(int ring_cols, int out_cols, 
   return ring > tile ? ring : tile;
 }
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; the bytes past src_bytes are zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of registers that an
-// in-flight wgmma reads (A) or accumulates into (D) across the fences.
-template <int NT>
-__device__ __forceinline__ void fence_regs(float (&d)[NT][4]) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-  }
-}
-
-template <int NK>
-__device__ __forceinline__ void fence_regs(unsigned (&a)[NK][4]) {
-#pragma unroll
-  for (int j = 0; j < NK; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
-  }
-}
-
-// The shared-memory descriptor of a K-major, unswizzled B tile starting at p:
-// the start address, then the byte offsets (over 16) between core matrices
-// along K (the leading dimension) and along N (the stride dimension).
-__device__ __forceinline__ uint64_t smem_desc(const bf16* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(kCoreBytes >> 4) << 16) |
-         (static_cast<uint64_t>(kCoreRowBytes >> 4) << 32);
+// The descriptor of a B chunk starting at p (core matrices of 8 columns x
+// 16 bytes: 8 bf16 or 4 f32 taps): 128 bytes apart along K, kCoreRowBytes
+// along N.
+__device__ __forceinline__ uint64_t smem_desc(const void* p) {
+  return smem_desc_kmajor(p, kCoreBytes, kCoreRowBytes);
 }
 
 // d[NT][4] += a (this warp's 16 of the warpgroup's 64 rows, 16 taps, in
@@ -483,59 +388,26 @@ struct Wgmma<16> {
   }
 };
 
-// Stage elements [a0, a0 + len) of the flat bf16 input in s, counting
-// elements from the 16-byte-aligned address base: whole 16-byte pieces from
-// a0 rounded down to 8 elements, zero at and past hi (the segment's end),
-// so frames past the segment read zeros and are never stored. Returns a0's
-// offset in s. Issues cp.async without committing.
-__device__ __forceinline__ int stage_span(const bf16* base, long long a0, int len,
-                                          long long hi, bf16* s) {
-  const long long a_al = a0 & ~7LL;
-  const int pieces = static_cast<int>((a0 - a_al + len + 7) >> 3);
+// Stage elements [a0, a0 + len) of the flat input (bf16, int16 or f32) in
+// s, counting elements from the 16-byte-aligned address base: whole 16-byte
+// pieces from a0 rounded down to a piece, zero at and past hi (the
+// segment's or the buffer's end), so frames past it read zeros and are
+// never stored. Returns a0's offset in s. Issues cp.async without
+// committing.
+template <typename T>
+__device__ __forceinline__ int stage_span(const T* base, long long a0, int len, long long hi,
+                                          T* s) {
+  constexpr int kPer = 16 / sizeof(T);
+  const long long a_al = a0 & ~static_cast<long long>(kPer - 1);
+  const int pieces = static_cast<int>((a0 - a_al + len + kPer - 1) / kPer);
   for (int p = threadIdx.x; p < pieces; p += blockDim.x) {
-    const long long g = a_al + 8LL * p;
+    const long long g = a_al + static_cast<long long>(kPer) * p;
     const long long valid = hi - g;
-    const int bytes = valid >= 8 ? 16 : (valid > 0 ? static_cast<int>(valid) * 2 : 0);
-    cp_async16(s + 8 * p, bytes > 0 ? base + g : base, bytes);
+    const int bytes = valid >= kPer ? 16
+                                    : (valid > 0 ? static_cast<int>(valid * sizeof(T)) : 0);
+    cp_async16(s + kPer * p, bytes > 0 ? base + g : base, bytes);
   }
   return static_cast<int>(a0 - a_al);
-}
-
-// The B ring's chunks arrive by bulk copy (the TMA), each completing on its
-// stage's mbarrier.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void fence_mbar_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// One thread copies bytes (a multiple of 16) from the 16-byte-aligned src
-// to dst; the copy completes the current phase of bar.
-__device__ __forceinline__ void bulk_load(bf16* dst, const bf16* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// Wait until the phase of bar with the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
 }
 
 __device__ __forceinline__ unsigned pair16(const unsigned short* h, int i) {
@@ -879,34 +751,291 @@ __global__ void __launch_bounds__(128 * kMaxWarpgroups)
   store_out(ring, pitch, kMels, tm, out, n, M, blockIdx.z * kMels, n_frames, t0);
 }
 
+// ---------------------------------------------------------------------------
+// B5: split-TF32 tensor-core kernel
+// ---------------------------------------------------------------------------
+
+// B5's B operand streams in chunks of 32 taps: 128 bytes of f32 per column,
+// the byte geometry of a 64-tap bf16 chunk, so smem_desc's offsets hold.
+// The host packs it so (ops/cuda/frontend.py, TF32_TAPS).
+constexpr int kTf32Kc = 32;
+constexpr int kTf32Steps = kTf32Kc / 8;  // k8 steps per chunk
+
+// x rounded to TF32 (10 mantissa bits, round to nearest, ties away): the
+// tensor cores ignore an f32 operand's low 13 bits, so the rounding is
+// explicit.
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d[NT][4] += a (this warp's 16 of the warpgroup's 64 rows, 8 taps, TF32 in
+// registers) x B (8 taps x NT * 8 columns at desc): the m64nNk8 TF32 wgmma
+// with f32 accumulators, asynchronously.
+template <int NT>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<4> {
+  static __device__ __forceinline__ void run(float (&d)[4][4], const unsigned (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf32<8> {
+  static __device__ __forceinline__ void run(float (&d)[8][4], const unsigned (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf32<12> {
+  static __device__ __forceinline__ void run(float (&d)[12][4], const unsigned (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaTf32<16> {
+  static __device__ __forceinline__ void run(float (&d)[16][4], const unsigned (&a)[4],
+                                             uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+  }
+};
+
+
+// One staged sample, scaled as the plain version scales it.
+__device__ __forceinline__ float sample_f32(const float* s, int i, float scale) {
+  return __fmul_rn(s[i], scale);
+}
+__device__ __forceinline__ float sample_f32(const short* s, int i, float scale) {
+  return __fmul_rn(static_cast<float>(s[i]), scale);
+}
+
+// This thread's A fragments of one 32-tap chunk from kb on, split in
+// registers: x = big + small, big = tf32(x), small = tf32(x - big). Rows
+// outside the tile (ok false) and taps at or past K give 0; for int16
+// input, big + small is x exactly (16 significant bits).
+template <typename T>
+__device__ __forceinline__ void load_chunk_tf32(unsigned (&big)[kTf32Steps][4],
+                                                unsigned (&small)[kTf32Steps][4],
+                                                const T* s, int ra, int rb, bool ok_a,
+                                                bool ok_b, int kb, int K, int tq,
+                                                float scale) {
+#pragma unroll
+  for (int kk = 0; kk < kTf32Steps; ++kk) {
+    const int k0 = kb + kk * 8 + tq;
+    // a0: (row g, tap t), a1: (row g + 8, tap t), a2, a3: tap t + 4.
+    const bool use[4] = {ok_a && k0 < K, ok_b && k0 < K, ok_a && k0 + 4 < K,
+                         ok_b && k0 + 4 < K};
+    const int at[4] = {ra + k0, rb + k0, ra + k0 + 4, rb + k0 + 4};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = use[e] ? sample_f32(s, at[e], scale) : 0.0f;
+      big[kk][e] = to_tf32(v);
+      small[kk][e] = to_tf32(__fsub_rn(v, __uint_as_float(big[kk][e])));
+    }
+  }
+}
+
+// acc += the chunk's 3xTF32 product: small(A) big(W) + big(A) small(W) +
+// big(A) big(W) per k8 step (the small terms first), twelve wgmma committed
+// as one group and left in flight. stage holds w_big's NT*8 x 32 core
+// matrices, then w_small's.
+template <int NT>
+__device__ __forceinline__ void issue_chunk_tf32(float (&acc)[NT][4],
+                                                 const unsigned (&big)[kTf32Steps][4],
+                                                 const unsigned (&small)[kTf32Steps][4],
+                                                 const float* stage) {
+  const float* w_big = stage;
+  const float* w_small = stage + NT * 8 * kTf32Kc;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kTf32Steps; ++kk) {
+    const int off = kk * 2 * (kCoreBytes / sizeof(float));  // two core matrices of 8 x 4
+    WgmmaTf32<NT>::run(acc, small[kk], smem_desc(w_big + off));
+    WgmmaTf32<NT>::run(acc, big[kk], smem_desc(w_small + off));
+    WgmmaTf32<NT>::run(acc, big[kk], smem_desc(w_big + off));
+  }
+  wgmma_commit();
+}
+
+// B5: out[n, t, f] = log(y*y + eps), y = sum_k (scale * audio[n * step +
+// t * hop + k]) * w[f, k], the product in split TF32 with f32 sums. Grid
+// (frame tiles, n, column groups); blockDim 128 x warpgroups; each
+// warpgroup covers `rows` frames (64, or 32 or 16 where a large hop's span
+// would not fit: the other rows of its m64 tile are zero and not stored).
+// The span stays in the input's type (int16 or f32) and is scaled and split
+// as the A fragments load. wpack is [groups, kchunks, 2, NT*8, 32] in core
+// matrix order (w_big | w_small per chunk).
+template <typename T, int NT>
+__global__ void __launch_bounds__(128 * kMaxWarpgroups)
+    frame_filterbank_tf32_kernel(const T* __restrict__ base, long long lead0,
+                                 long long audio_len, const float* __restrict__ wpack,
+                                 float* __restrict__ out, int step, int K, int hop, int F,
+                                 int n_frames, int kchunks, int rows, int span_len,
+                                 int span_bytes, float eps, float scale) {
+  constexpr int kCols = NT * 8;
+  constexpr int kChunkFloats = 2 * kCols * kTf32Kc;
+  constexpr unsigned kChunkBytes = sizeof(float) * kChunkFloats;
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  T* s_x = reinterpret_cast<T*>(mma_smem);
+  float* ring = reinterpret_cast<float*>(mma_smem + span_bytes);  // [kStages][kChunkFloats]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kChunkFloats);
+  const int n = blockIdx.y;
+  const int t0 = blockIdx.x * (blockDim.x / 128) * rows;
+  const float* wg = wpack + static_cast<size_t>(blockIdx.z) * kchunks * kChunkFloats;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(&full[st]);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kLookahead && i < kchunks; ++i) {
+      bulk_load(ring + i * kChunkFloats, wg + static_cast<size_t>(i) * kChunkFloats,
+                kChunkBytes, &full[i]);
+    }
+  }
+  const long long start = lead0 + static_cast<long long>(n) * step +
+                          static_cast<long long>(t0) * hop;
+  const int lead = stage_span(base, start, span_len, lead0 + audio_len, s_x);
+  cp_async_commit();
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tq = lane & 3;
+  const int lr = (warp & 3) * 16 + (lane >> 2);  // this thread's row in its warpgroup
+  const bool ok_a = lr < rows;
+  const bool ok_b = lr + 8 < rows;
+  const int fa = (warp >> 2) * rows + lr;  // its frame in the tile (and fa + 8)
+  const int ra = lead + fa * hop;
+  const int rb = ra + 8 * hop;
+  float acc[NT][4] = {};
+  // B2's ring schedule: chunk i waits for its B (and, first, the span);
+  // once every warp is past chunk i - 2's MMAs, that stage is refilled with
+  // chunk i + kLookahead; chunk i's MMAs are issued, and chunk i + 1's A
+  // fragments load and split while they run.
+  auto step_chunk = [&](int i, unsigned (&cb)[kTf32Steps][4], unsigned (&cs)[kTf32Steps][4],
+                        unsigned (&nb)[kTf32Steps][4], unsigned (&ns)[kTf32Steps][4]) {
+    if (i == 0) cp_async_wait_all();
+    mbar_wait(&full[i % kStages], (i / kStages) & 1);
+    __syncthreads();
+    const int ahead = i + kLookahead;
+    if (threadIdx.x == 0 && ahead < kchunks) {
+      bulk_load(ring + (ahead % kStages) * kChunkFloats,
+                wg + static_cast<size_t>(ahead) * kChunkFloats, kChunkBytes,
+                &full[ahead % kStages]);
+    }
+    if (i == 0) load_chunk_tf32(cb, cs, s_x, ra, rb, ok_a, ok_b, 0, K, tq, scale);
+    issue_chunk_tf32<NT>(acc, cb, cs, ring + (i % kStages) * kChunkFloats);
+    wgmma_wait<1>();
+    fence_regs(nb);
+    fence_regs(ns);
+    if (i + 1 < kchunks) {
+      load_chunk_tf32(nb, ns, s_x, ra, rb, ok_a, ok_b, (i + 1) * kTf32Kc, K, tq, scale);
+    }
+  };
+  unsigned b0[kTf32Steps][4], s0[kTf32Steps][4], b1[kTf32Steps][4], s1[kTf32Steps][4];
+  for (int i = 0; i < kchunks; i += 2) {
+    step_chunk(i, b0, s0, b1, s1);
+    if (i + 1 < kchunks) step_chunk(i + 1, b1, s1, b0, s0);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // [n, T, F] straight from the accumulators: per n-tile, a warp writes 8
+  // frames x 8 adjacent filters (whole 32-byte sectors when F is even).
+  const int col0 = blockIdx.z * kCols + 2 * tq;
+  const int frame[2] = {t0 + fa, t0 + fa + 8};
+  const bool ok[2] = {ok_a && frame[0] < n_frames, ok_b && frame[1] < n_frames};
+  const auto fn = [eps](float y) {
+    // y*y and +eps rounded separately, as the reference does (no FMA).
+    return logf(__fadd_rn(__fmul_rn(y, y), eps));
+  };
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!ok[h]) continue;
+    float* row = out + (static_cast<size_t>(n) * n_frames + frame[h]) * F;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int col = col0 + j * 8;
+      const float v0 = fn(acc[j][2 * h]), v1 = fn(acc[j][2 * h + 1]);
+      if (col + 1 < F && (F & 1) == 0) {
+        *reinterpret_cast<float2*>(row + col) = make_float2(v0, v1);
+      } else {
+        if (col < F) row[col] = v0;
+        if (col + 1 < F) row[col + 1] = v1;
+      }
+    }
+  }
+}
+
 int round_up_threads(int items) {
   const int t = (items + 31) / 32 * 32;
   return t < 1024 ? t : 1024;
-}
-
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-template <typename A>
-int launch_frame_filterbank(const void* audio, const void* wt, void* out, int N,
-                            long long audio_len, int step, int K, int hop, int F,
-                            int n_frames, float eps, float scale,
-                            cudaStream_t stream) {
-  const size_t smem = sizeof(float) * tile_span(hop, K);
-  cudaError_t err = set_smem(frame_filterbank_logpower_kernel<A>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_frames + kTileFrames - 1) / kTileFrames, N);
-  const int half = (F + kColsPerThread - 1) / kColsPerThread;
-  const int threads =
-      round_up_threads(half * (kTileFrames / kFbFramesPerThread));
-  frame_filterbank_logpower_kernel<A><<<grid, threads, smem, stream>>>(
-      static_cast<const A*>(audio), static_cast<const float*>(wt),
-      static_cast<float*>(out), audio_len, step, K, hop, F, n_frames, eps, scale);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The geometry of a tensor-core launch: the input's 16-byte-aligned base and
@@ -1013,6 +1142,74 @@ int dispatch_stft_mma(const MmaPlan& pl, const void* bpack, const void* mpack, v
                                        groups, n_frames, eps, stream);
 }
 
+// The geometry of a B5 launch: the input's 16-byte-aligned base and its
+// first element's offset from it; warpgroups per CTA and the frames each
+// covers (two of 64, else one of 64, 32 or 16, the first whose span fits
+// beside the B ring); the span a CTA stages and its allocation in bytes
+// (a multiple of 128, so that the ring after it is aligned).
+struct Tf32Plan {
+  const void* base;
+  long long lead0;
+  int warpgroups;
+  int rows;
+  int span_len;
+  int span_bytes;
+  size_t smem;
+};
+
+bool plan_tf32(const void* audio, int elem, int K, int hop, int cols, Tf32Plan* pl) {
+  static const int kShapes[][2] = {{2, 64}, {1, 64}, {1, 32}, {1, 16}};
+  const uintptr_t p = reinterpret_cast<uintptr_t>(audio);
+  pl->base = reinterpret_cast<const void*>(p & ~static_cast<uintptr_t>(15));
+  pl->lead0 = static_cast<long long>((p & 15) / elem);
+  const size_t ring = sizeof(float) * kStages * 2 * cols * kTf32Kc + sizeof(uint64_t) * kStages;
+  const long long taps = (K + kTf32Kc - 1) / kTf32Kc * kTf32Kc;
+  for (const auto& shape : kShapes) {
+    const long long span = static_cast<long long>(shape[0] * shape[1] - 1) * hop + taps;
+    const long long bytes = ((16 / elem - 1 + span) * elem + 127) / 128 * 128;
+    if (static_cast<size_t>(bytes) + ring > kMaxSmem) continue;
+    pl->warpgroups = shape[0];
+    pl->rows = shape[1];
+    pl->span_len = static_cast<int>(span);
+    pl->span_bytes = static_cast<int>(bytes);
+    pl->smem = static_cast<size_t>(bytes) + ring;
+    return true;
+  }
+  return false;
+}
+
+template <typename T, int NT>
+int launch_frame_tf32(const Tf32Plan& pl, const void* wpack, void* out, int N,
+                      long long audio_len, int step, int K, int hop, int F, int groups,
+                      int n_frames, float eps, float scale, cudaStream_t stream) {
+  auto kernel = frame_filterbank_tf32_kernel<T, NT>;
+  cudaError_t err = set_smem(kernel, pl.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tile = pl.warpgroups * pl.rows;
+  const dim3 grid((n_frames + tile - 1) / tile, N, groups);
+  kernel<<<grid, 128 * pl.warpgroups, pl.smem, stream>>>(
+      static_cast<const T*>(pl.base), pl.lead0, audio_len, static_cast<const float*>(wpack),
+      static_cast<float*>(out), step, K, hop, F, n_frames, (K + kTf32Kc - 1) / kTf32Kc,
+      pl.rows, pl.span_len, pl.span_bytes, eps, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_frame_tf32(const void* audio, const void* wpack, void* out, int N,
+                        long long audio_len, int step, int K, int hop, int F, int cols,
+                        int groups, int n_frames, float eps, float scale,
+                        cudaStream_t s) {
+  Tf32Plan pl;
+  if (!plan_tf32(audio, sizeof(T), K, hop, cols, &pl)) return kSpanTooLarge;
+  switch (cols) {
+    case 32: return launch_frame_tf32<T, 4>(pl, wpack, out, N, audio_len, step, K, hop, F, groups, n_frames, eps, scale, s);
+    case 64: return launch_frame_tf32<T, 8>(pl, wpack, out, N, audio_len, step, K, hop, F, groups, n_frames, eps, scale, s);
+    case 96: return launch_frame_tf32<T, 12>(pl, wpack, out, N, audio_len, step, K, hop, F, groups, n_frames, eps, scale, s);
+    case 128: return launch_frame_tf32<T, 16>(pl, wpack, out, N, audio_len, step, K, hop, F, groups, n_frames, eps, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" int bn_filterbank_logpower_f32(const void* seg, const void* wt, void* out,
@@ -1092,17 +1289,31 @@ extern "C" int bn_frontend_bf16_max_hop(int stft, int K, int cols) {
   return hop;
 }
 
-// in_dtype: 0 = float32, 1 = int16 audio; weights and output are float32.
+// in_dtype: 0 = float32, 1 = int16 audio. wpack: [groups, ceil(K/32), 2,
+// cols, 32] float32 (w_big | w_small, core matrix order) with cols in {32,
+// 64, 96, 128}; out float32 [N, n_frames, F].
 extern "C" int bn_frame_filterbank_logpower(int in_dtype, const void* audio,
-                                            const void* wt, void* out, int N,
+                                            const void* wpack, void* out, int N,
                                             long long audio_len, int step, int K,
-                                            int hop, int F, int n_frames,
-                                            float eps, float scale, void* stream) {
+                                            int hop, int F, int cols, int groups,
+                                            int n_frames, float eps, float scale,
+                                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == 0) {
-    return launch_frame_filterbank<float>(audio, wt, out, N, audio_len, step, K, hop,
-                                          F, n_frames, eps, scale, s);
+    return dispatch_frame_tf32<float>(audio, wpack, out, N, audio_len, step, K, hop, F,
+                                      cols, groups, n_frames, eps, scale, s);
   }
-  return launch_frame_filterbank<short>(audio, wt, out, N, audio_len, step, K, hop, F,
-                                        n_frames, eps, scale, s);
+  return dispatch_frame_tf32<short>(audio, wpack, out, N, audio_len, step, K, hop, F, cols,
+                                    groups, n_frames, eps, scale, s);
+}
+
+// The largest hop B5 takes for in_dtype's samples at K taps and cols
+// columns per CTA: above it bn_frame_filterbank_logpower returns
+// kSpanTooLarge.
+extern "C" int bn_frame_filterbank_max_hop(int in_dtype, int K, int cols) {
+  Tf32Plan pl;
+  const int elem = in_dtype == 0 ? 4 : 2;
+  int hop = 0;
+  while (plan_tf32(nullptr, elem, K, hop + 1, cols, &pl)) ++hop;
+  return hop;
 }

@@ -12,11 +12,17 @@ Three kernels, in ``birdnet_tpu_torch/csrc/frontend.cu``:
   ``birdnet_tpu/ops/pallas/frontend.py::segments_stft_melspec``.
 - :func:`frame_filterbank_logpower` (B5) — the conv-form frontend over
   ``n_segments`` windows at ``step`` of ONE 1-D float32 or int16 buffer,
-  the samples scaled in the kernel, float32 throughout, returning
+  the samples scaled in the kernel, float32-accurate throughout, returning
   ``[n, T, F]``: the JAX package's public function of that name, with its
   signature. Replaces
   ``birdnet_tpu/ops/pallas/frontend.py::frame_filterbank_logpower``; any
-  hop and step (the TPU's ``hop % 128`` rule is a Mosaic rule).
+  step (the TPU's ``hop % 128`` rule is a Mosaic rule). Its product runs
+  on the tensor cores in split TF32 (:func:`split_tf32`: each operand is
+  ``big + small``, the sum ``big·big + big·small + small·big``), the
+  JAX kernel's ``Precision.HIGHEST`` on this card; the filterbank is packed
+  once per device (:func:`pack_filterbank_tf32`). Hops up to
+  :func:`frame_max_hop` (2165 for float32 and 4398 for int16 samples at
+  1024 taps and 96 filters), ``ValueError`` above.
 
 B1 and B2 take segments ``[N, S]`` in the compute dtype (float32 or bfloat16) and
 return ``[N, F|M, T]`` in that dtype, the mel-image orientation. They keep
@@ -65,6 +71,9 @@ _COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 MMA_TAPS = 64
 MMA_BINS = 64
 MMA_MAX_COLS = 128
+# B5's B operand streams in chunks of TF32_TAPS taps (csrc/frontend.cu's
+# kTf32Kc: 128 bytes of float32 per column, as MMA_TAPS bf16 taps).
+TF32_TAPS = 32
 
 
 def reset_launches() -> None:
@@ -165,14 +174,15 @@ def col_groups(n_cols: int) -> Tuple[int, int]:
     return groups, -(-per // 32) * 32
 
 
-def core_matrix_order(a):
-    """``[..., cols, 64]`` (a chunk of ``cols`` columns of 64 taps each) as
-    ``[..., cols/8, 8, 8, 8]``: 8-column x 8-tap core matrices of 128
-    contiguous bytes, those of one 8-column group adjacent along the taps,
-    the layout wgmma reads a K-major B operand in without swizzle. numpy
-    arrays or tensors."""
+def core_matrix_order(a, per_row: int = 8):
+    """``[..., cols, taps]`` (a chunk of ``cols`` columns, 128 bytes of taps
+    each: 64 bf16 or 32 float32) as ``[..., cols/8, taps/per_row, 8,
+    per_row]``: core matrices of 8 columns x 16 bytes (``per_row`` taps: 8
+    bf16, 4 float32), 128 contiguous bytes, those of one 8-column group
+    adjacent along the taps, the layout wgmma reads a K-major B operand in
+    without swizzle. numpy arrays or tensors."""
     *lead, cols, taps = a.shape
-    return a.reshape(*lead, cols // 8, 8, taps // 8, 8).swapaxes(-3, -2)
+    return a.reshape(*lead, cols // 8, 8, taps // per_row, per_row).swapaxes(-3, -2)
 
 
 def pack_filterbank(weights: torch.Tensor) -> torch.Tensor:
@@ -214,17 +224,22 @@ def _cached(match, make):
     return operands
 
 
-def _packed_filterbank(weights: torch.Tensor) -> torch.Tensor:
-    """:func:`pack_filterbank` in bfloat16, cached while ``weights`` lives
-    and is not modified in place (a model's filterbank is packed once)."""
+def _packed_once(weights: torch.Tensor, name: str, pack) -> torch.Tensor:
+    """``pack(weights)``, cached under ``name`` while ``weights`` lives and
+    is not modified in place (a model's filterbank is packed once)."""
     if weights.is_inference():
-        return pack_filterbank(weights.to(torch.bfloat16))
+        return pack(weights)
     version = weights._version
     return _cached(
-        lambda key: key[0] == "filterbank" and key[1]() is weights and key[2] == version,
-        lambda: (("filterbank", weakref.ref(weights), version),
-                 pack_filterbank(weights.to(torch.bfloat16))),
+        lambda key: key[0] == name and key[1]() is weights and key[2] == version,
+        lambda: ((name, weakref.ref(weights), version), pack(weights)),
     )
+
+
+def _packed_filterbank(weights: torch.Tensor) -> torch.Tensor:
+    """B2's operand: :func:`pack_filterbank` in bfloat16, packed once."""
+    return _packed_once(weights, "filterbank",
+                        lambda w: pack_filterbank(w.to(torch.bfloat16)))
 
 
 def segments_filterbank_logpower(segments: torch.Tensor, weights: torch.Tensor,
@@ -409,6 +424,54 @@ def segments_stft_melspec(segments: torch.Tensor, window, mel, *, hop: int,
 _AUDIO_CODES = {torch.float32: 0, torch.int16: 1}
 
 
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(big, small)`` of a float32 tensor: ``big`` is ``x`` rounded to
+    TF32 (10 mantissa bits, round to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32``), ``small`` is ``x - big`` rounded the same way. The
+    kernel splits its A operand so in registers; its B operand is split here.
+    ``big + small`` is ``x`` to about 2^-22 relative, and exactly for values
+    of at most 22 significant bits (int16 samples scaled by a power of 2)."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    x = x.float()
+    big = rna(x)
+    return big, rna(x - big)
+
+
+def pack_filterbank_tf32(weights: torch.Tensor) -> torch.Tensor:
+    """B5's B operand: the filterbank ``[F, 1, K]`` or ``[F, K]`` split by
+    :func:`split_tf32` as ``[groups, ceil(K/32), 2, cols/8, 8, 8, 4]``
+    float32: per column group (see :func:`col_groups`) and 32-tap chunk,
+    ``w_big`` then ``w_small``, each ``cols`` filters x 32 taps in
+    :func:`core_matrix_order`, each chunk one contiguous copy; taps and
+    filters zero-padded. Same device as ``weights``."""
+    weights = _filterbank(weights).float()
+    n_filters, kernel_size = weights.shape
+    groups, cols = col_groups(n_filters)
+    taps = -(-kernel_size // TF32_TAPS) * TF32_TAPS
+    padded = weights.new_zeros((groups * cols, taps))
+    padded[:n_filters, :kernel_size] = weights
+    parts = torch.stack(split_tf32(padded))  # [2, groups * cols, taps]
+    chunks = parts.reshape(2, groups, cols, taps // TF32_TAPS, TF32_TAPS).permute(1, 3, 0, 2, 4)
+    return core_matrix_order(chunks, 4).contiguous()
+
+
+def _packed_filterbank_tf32(weights: torch.Tensor) -> torch.Tensor:
+    """B5's operand: :func:`pack_filterbank_tf32`, packed once."""
+    return _packed_once(weights, "filterbank_tf32", pack_filterbank_tf32)
+
+
+def frame_max_hop(kernel_size: int, n_filters: int, audio_dtype=torch.int16) -> int:
+    """The largest hop B5's kernel takes for ``kernel_size`` taps,
+    ``n_filters`` filters and samples of ``audio_dtype`` (int16 or float32):
+    the samples of 16 frames must fit in shared memory beside the B ring.
+    Builds the kernels."""
+    return load_library().bn_frame_filterbank_max_hop(
+        _AUDIO_CODES[audio_dtype], kernel_size, col_groups(n_filters)[1])
+
+
 def _frame_geometry(audio: torch.Tensor, weights: torch.Tensor, n_segments: int,
                     step: int, sample_count: int, hop: int):
     """``(weights [F, K] float32, n_frames)``; raises as the JAX function
@@ -464,23 +527,32 @@ def frame_filterbank_logpower(audio, weights, *, n_segments: int, step: int,
         return frame_filterbank_logpower_plain(
             audio, weights, n_segments=n_segments, step=step,
             sample_count=sample_count, hop=hop, eps=eps, scale=scale)
-    weights, n_frames = _frame_geometry(audio, weights, n_segments, step,
-                                        sample_count, hop)
+    w, n_frames = _frame_geometry(audio, weights, n_segments, step, sample_count, hop)
     if audio.device.type != "cuda":
         raise ValueError(f"frontend kernels run on CUDA tensors, got {audio.device}")
+    if weights.device != audio.device:
+        raise ValueError(f"weights on {weights.device}, audio on {audio.device}")
     audio = audio.contiguous()
-    wt = weights.to(audio.device).t().contiguous()  # [K, F]
-    n_filters, kernel_size = weights.shape
+    n_filters, kernel_size = w.shape
     out = torch.empty((n_segments, n_frames, n_filters), dtype=torch.float32,
                       device=audio.device)
     if n_segments == 0:
         return out
+    wpack = _packed_filterbank_tf32(weights)
     lib = load_library()
     status = lib.bn_frame_filterbank_logpower(
-        _AUDIO_CODES[audio.dtype], audio.data_ptr(), wt.data_ptr(), out.data_ptr(),
-        n_segments, audio.shape[0], step, kernel_size, hop, n_filters, n_frames,
-        float(eps), float(scale), torch.cuda.current_stream(audio.device).cuda_stream,
+        _AUDIO_CODES[audio.dtype], audio.data_ptr(), wpack.data_ptr(), out.data_ptr(),
+        n_segments, audio.shape[0], step, kernel_size, hop, n_filters, 8 * wpack.shape[3],
+        wpack.shape[0], n_frames, float(eps), float(scale),
+        torch.cuda.current_stream(audio.device).cuda_stream,
     )
+    if status == -1:
+        raise ValueError(
+            f"hop {hop}: the samples of 16 frames of {kernel_size} taps do not fit "
+            f"in shared memory (B5's kernel takes hops up to "
+            f"{frame_max_hop(kernel_size, n_filters, audio.dtype)} for "
+            f"{audio.dtype} samples here)"
+        )
     check(status, "frame_filterbank_logpower kernel")
     LAUNCHES["frame_filterbank_logpower"] += 1
     return out

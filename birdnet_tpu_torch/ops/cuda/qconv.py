@@ -15,6 +15,13 @@ float32 reciprocal flips round-half-even ties). The TPU kernel takes only
 spatial sizes that are multiples of 128, its lane tiling; this one takes
 every ``N >= 1``.
 
+The kernel runs the product on the tensor cores (``wgmma`` s8 with s32
+sums) with all positions of the batch as one GEMM dimension and ``w`` as
+its B operand, packed once per weight tensor (:func:`pack_weights`: zero
+padding to 32-channel chunks and to the kernel's column tiles, then the
+core-matrix order ``wgmma`` reads) and cached while the tensor lives and
+is not modified in place.
+
 A wrapper dispatches on the tensor's device: a CPU tensor takes the plain
 PyTorch version (:func:`qconv1x1_requant_plain`), a CUDA tensor launches the
 kernel (building it on first use) or raises. ``LAUNCHES`` counts kernel
@@ -23,11 +30,13 @@ launches.
 
 from __future__ import annotations
 
-from typing import Optional
+import weakref
+from typing import Optional, Tuple
 
 import torch
 
 from .build import check, load_library
+from .frontend import core_matrix_order
 
 LAUNCHES = {"qconv1x1_requant": 0}
 
@@ -42,6 +51,12 @@ EPILOGUE_ACTS = {
     "tanh": torch.tanh,
 }
 _ACT_CODES = {"": 0, "relu": 1, "sigmoid": 2, "silu": 3, "tanh": 4}
+
+# The kernel's tiling, which the packed weights follow (csrc/qconv.cu): the
+# input channels stream in chunks of K_CHUNK; a CTA covers one column tile
+# of one of COL_TILES output channels.
+K_CHUNK = 32
+COL_TILES = (16, 32, 48, 64)
 
 
 def reset_launches() -> None:
@@ -88,6 +103,54 @@ def qconv1x1_requant_plain(x: torch.Tensor, w: torch.Tensor,
     return torch.round(v / divisor).clamp(-128, 127).to(torch.int8)
 
 
+def col_tiles(c_out: int) -> Tuple[int, int]:
+    """``(tiles, cols)``: the kernel covers ``c_out`` output channels in
+    ``tiles`` CTA column tiles of ``cols`` each, the narrowest of
+    :data:`COL_TILES` that holds an even share (the padding columns are zero
+    and never stored)."""
+    tiles = -(-c_out // COL_TILES[-1])
+    per = -(-c_out // tiles)
+    return tiles, next(c for c in COL_TILES if c >= per)
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """B3's B operand: int8 ``w [C_out, C_in]`` as ``[tiles, ceil(C_in/32),
+    cols/8, 2, 8, 16]``: per column tile (see :func:`col_tiles`) and
+    32-channel chunk, ``cols`` rows of 32 channels in :func:`core_matrix_order`
+    (core matrices of 8 rows x 16 channels), each chunk one contiguous copy;
+    channels and rows zero-padded. Same device as ``w``."""
+    c_out, c_in = w.shape
+    tiles, cols = col_tiles(c_out)
+    k = -(-c_in // K_CHUNK) * K_CHUNK
+    padded = w.new_zeros((tiles * cols, k))
+    padded[:c_out, :c_in] = w
+    chunks = padded.reshape(tiles, cols, k // K_CHUNK, K_CHUNK).permute(0, 2, 1, 3)
+    return core_matrix_order(chunks, 16).contiguous()
+
+
+# Packed weights, most recent last: (key, pack). The key names the tensor
+# whose storage holds w (w itself, or the base of the view the lowering
+# passes) by identity and version counter, with the view's geometry; an
+# inference tensor has no version counter, so it is packed on every call.
+# Room for every 1x1 conv of a few int8 models.
+_PACKS: list = []
+_PACKS_KEPT = 256
+
+
+def _packed_weights(w: torch.Tensor) -> torch.Tensor:
+    if w.is_inference():
+        return pack_weights(w)
+    root = w if w._base is None else w._base
+    key = (root._version, w.storage_offset(), tuple(w.shape), tuple(w.stride()))
+    for (ref, k), pack in reversed(_PACKS):
+        if ref() is root and k == key:
+            return pack
+    pack = pack_weights(w)
+    _PACKS.append(((weakref.ref(root), key), pack))
+    del _PACKS[:-_PACKS_KEPT]
+    return pack
+
+
 def qconv1x1_requant(x: torch.Tensor, w: torch.Tensor,
                      bias_i32: Optional[torch.Tensor], scale: torch.Tensor,
                      y_scale: float, act: str = "") -> torch.Tensor:
@@ -115,12 +178,13 @@ def qconv1x1_requant(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((n_img, c_out, n), dtype=torch.int8, device=x.device)
     if out.numel() == 0:
         return out
+    wpack = _packed_weights(w)
     lib = load_library()
     status = lib.bn_qconv1x1_requant(
-        x.data_ptr(), w.data_ptr(),
+        x.data_ptr(), wpack.data_ptr(),
         None if bias_i32 is None else bias_i32.data_ptr(),
         scale.data_ptr(), out.data_ptr(), n_img, c_in, c_out, n,
-        float(y_scale), _ACT_CODES[act],
+        8 * wpack.shape[2], wpack.shape[0], float(y_scale), _ACT_CODES[act],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(status, "qconv1x1_requant kernel")

@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..runtime import device_or_default
+
 
 def design_kaiser_sinc(L: int, M: int, beta: float = 5.0, window_mult: int = 10) -> np.ndarray:
     """Windowed-sinc low-pass for rational L/M resampling (the filter
@@ -64,16 +66,19 @@ def resample_poly(
     device=None,
 ) -> torch.Tensor:
     """Resample 1-D audio from ``orig_rate`` to ``target_rate`` on
-    ``device`` (default: the tensor's own, or the CPU for host arrays).
+    ``device`` (default: a tensor's own device; for a host array
+    ``cuda:0``, which raises :class:`RuntimeInitError` without CUDA, so a
+    host run passes ``"cpu"``).
 
     Output length = ceil(len(samples) * L / M) for the reduced ratio L/M,
     matching scipy.signal.resample_poly. The conv runs in full float32:
     TF32 is turned off for cuDNN, process-wide, as the importer does.
     """
+    if device is None:
+        device = samples.device if isinstance(samples, torch.Tensor) else device_or_default()
     if not isinstance(samples, torch.Tensor):
         samples = torch.from_numpy(np.ascontiguousarray(samples))
-    x = samples.to(device=device if device is not None else samples.device,
-                   dtype=dtype).reshape(-1)
+    x = samples.to(device=device, dtype=dtype).reshape(-1)
     if orig_rate == target_rate:
         return x
     frac = Fraction(target_rate, orig_rate)
@@ -98,7 +103,8 @@ def resample_audio(
     device: Optional[torch.device] = None,
 ) -> np.ndarray:
     """Resample PCM audio (int16 or float32 in) to ``target_rate`` on
-    ``device`` (default: the CPU), returning host ``out_dtype`` (int16
+    ``device`` (default ``cuda:0``; without CUDA that raises
+    :class:`RuntimeInitError`), returning host ``out_dtype`` (int16
     requantizes for the streaming engine's raw-PCM upload path)."""
     samples = np.asarray(samples)
     if samples.dtype == np.int16:
@@ -106,7 +112,7 @@ def resample_audio(
     else:
         f32 = samples.astype(np.float32)
     y = resample_poly(f32, orig_rate, target_rate,
-                      device=device if device is not None else "cpu").cpu().numpy()
+                      device=device_or_default(device)).cpu().numpy()
     if np.dtype(out_dtype) == np.int16:
         return np.clip(y * 32768.0, -32768, 32767).astype(np.int16)
     return y.astype(out_dtype)

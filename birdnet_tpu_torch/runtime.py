@@ -42,3 +42,8 @@ def resolve_device(request: Optional[str] = None) -> torch.device:
         )
     return torch.device("cuda", device_id)
 
+
+def device_or_default(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` is :func:`resolve_device`'s
+    default, ``cuda:0`` (raising without CUDA)."""
+    return resolve_device(None) if device is None else torch.device(device)

@@ -18,7 +18,10 @@ exits non-zero:
              stage-prefix kernel (B4) at the full-width six-block geometry
              on [32, 1, 96, 511] in bf16 with and without fast_act and in
              float32; the framed-audio frontend (B5) on a 32-segment int16
-             buffer at step 144000 and 72000; times each kernel, its
+             buffer at step 144000 and 72000, also against the f64 oracle
+             on two windows; B3 at each of the 49 1x1 convs of the
+             full-width int8 v2.4 forward at batch 32, summed (the
+             qconv1x1_requant_forward line); times each kernel, its
              plain version and one PyTorch call computing the kernel's
              product on the same operands (library_ms, the yardstick: the
              port never calls it) as device time (a CUDA graph of 10
@@ -102,6 +105,7 @@ SOURCES = {
     "qconv1x1_requant": "birdnet_tpu_torch/csrc/qconv.cu",
     "stage_stack_forward": "birdnet_tpu_torch/csrc/stage_prefix.cu",
     "frame_filterbank_logpower": "birdnet_tpu_torch/csrc/frontend.cu",
+    "qconv1x1_requant_forward": "birdnet_tpu_torch/csrc/qconv.cu",
 }
 # The TPU kernels these replace (the wrappers that reach pl.pallas_call).
 REPLACES = {
@@ -110,6 +114,7 @@ REPLACES = {
     "qconv1x1_requant": "birdnet_tpu/ops/pallas/qconv.py:91",
     "stage_stack_forward": "birdnet_tpu/ops/pallas/stage123.py:255",
     "frame_filterbank_logpower": "birdnet_tpu/ops/pallas/frontend.py:194",
+    "qconv1x1_requant_forward": "birdnet_tpu/ops/pallas/qconv.py:91",
 }
 # B3 at batch 32: (C_in, C_out, N = H*W, activation), 1x1 convs of the int8
 # v2.4 graph; the first is the one the kernels line reports.
@@ -156,7 +161,7 @@ STREAM_CONF_TOL = 1e-3
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W):
 # the rates of bound_ms.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "fp32": 67e12}
 
 
 def reset_launches() -> None:
@@ -330,6 +335,7 @@ def phase_kernels(dev) -> dict:
                                  **{k: line[k] for k in ("library_ms", "library", "bound_ms",
                                                          "bound_by")}}
     summary["qconv1x1_requant"] = phase_qconv(dev)
+    summary["qconv1x1_requant_forward"] = phase_qconv_forward(dev)
     summary["stage_stack_forward"] = phase_stage_prefix(dev)
     summary["frame_filterbank_logpower"] = phase_frame_filterbank(dev, weights)
     return summary
@@ -405,9 +411,12 @@ def prefix_bound(x, out, tables) -> dict:
 
 def phase_frame_filterbank(dev, weights) -> dict:
     """B5 through its public function on a 32-segment int16 buffer at step
-    144000 and 72000 (hop 280, K 1024, F 96) against its plain version.
-    Its launches are the two compared calls. Returns the kernels-line
-    summary (step 144000, the largest error of both)."""
+    144000 and 72000 (hop 280, K 1024, F 96) against its plain version and,
+    on two windows, against the f64 oracle (the scaled windows through
+    filterbank_logpower_reference, transposed to [T, F]). Its launches are
+    the two compared calls. Returns the kernels-line summary (step 144000,
+    the largest error of both). Its bound is the f32-accurate product on
+    the card's fastest route, split TF32: three TF32 products."""
     rng = np.random.default_rng(SEED + 5)
     w = weights[:, 0, :]
     summary, worst = None, 0.0
@@ -424,13 +433,20 @@ def phase_frame_filterbank(dev, weights) -> dict:
             raise AssertionError(f"frame_filterbank_logpower: shape {tuple(got.shape)}")
         err, ok = within(got, want, torch.float32)
         worst = max(worst, err)
+        scaled = audio.cpu().double() / 32768.0
+        windows = torch.stack([scaled[i * step:i * step + S] for i in (0, N_SEG - 1)])
+        oracle = torch.from_numpy(fe.filterbank_logpower_reference(
+            windows.numpy(), w.cpu().numpy(), hop=HOP)).transpose(1, 2)
+        oerr, ook = within(got[[0, N_SEG - 1]].cpu(), oracle, torch.float32)
+        ok = ok and ook
         launches = fe.LAUNCHES["frame_filterbank_logpower"]
         ms, plain_ms = kernel_vs_plain_ms(
             lambda: fe.frame_filterbank_logpower(audio, w, **kw),
             lambda: fe.frame_filterbank_logpower_plain(audio, w, **kw))
         fe.LAUNCHES["frame_filterbank_logpower"] = launches
         line = {"phase": "kernel", "name": "frame_filterbank_logpower", "audio": "int16",
-                "step": step, "max_abs_err_vs_plain": err, "ms": ms, "plain_ms": plain_ms,
+                "step": step, "max_abs_err_vs_plain": err, "max_abs_err_vs_f64_oracle": oerr,
+                "ms": ms, "plain_ms": plain_ms,
                 "us_per_segment": 1e3 * ms / N_SEG,
                 "plain_us_per_segment": 1e3 * plain_ms / N_SEG, "ok": ok}
         emit(line)
@@ -447,7 +463,7 @@ def phase_frame_filterbank(dev, weights) -> dict:
                        "library_ms": time_ms(lambda: torch.matmul(frames, wt)),
                        "library": f"torch.matmul f32 {list(frames.shape)} x {list(wt.shape)}",
                        **bound(nbytes(audio, w, got),
-                               {"fp32": 2 * N_SEG * 511 * FLEN * N_MELS})}
+                               {"tf32": 3 * 2 * N_SEG * 511 * FLEN * N_MELS})}
     summary["max_abs_err"] = worst
     return summary
 
@@ -473,6 +489,18 @@ def _qconv_case(rng, dev, c_in, c_out, n, hostile):
             np.float32(y_scale))
 
 
+def compare_codes(got, want, act) -> tuple:
+    """(|Δ|, max |Δ|, codes differing, ok) of B3's codes against its plain
+    version's: equal without an activation or with relu; with sigmoid/silu
+    (exp may round differently) at most 1 code apart on at most
+    QCONV_MAX_DIFF_SHARE of the codes."""
+    diff = (got.int() - want.int()).abs()
+    max_diff, n_diff = int(diff.max()), int((diff > 0).sum())
+    if act in ("", "relu"):
+        return diff, max_diff, n_diff, max_diff == 0
+    return diff, max_diff, n_diff, max_diff <= 1 and n_diff <= QCONV_MAX_DIFF_SHARE * diff.numel()
+
+
 def phase_qconv(dev) -> dict:
     """B3 against its plain version; returns the kernels-line summary (the
     first shape's times, the largest code difference over all cases)."""
@@ -491,12 +519,7 @@ def phase_qconv(dev) -> dict:
         torch.cuda.synchronize()
         if got.shape != want.shape or got.shape != (N_SEG, c_out, n) or got.dtype != torch.int8:
             raise AssertionError(f"qconv: shape {tuple(got.shape)} vs {tuple(want.shape)}")
-        diff = (got.int() - want.int()).abs()
-        max_diff, n_diff = int(diff.max()), int((diff > 0).sum())
-        if act in ("", "relu"):
-            ok = max_diff == 0
-        else:
-            ok = max_diff <= 1 and n_diff <= QCONV_MAX_DIFF_SHARE * diff.numel()
+        diff, max_diff, n_diff, ok = compare_codes(got, want, act)
         line = {"phase": "kernel", "name": "qconv1x1_requant",
                 "shape": [N_SEG, c_in, n], "c_out": c_out, "act": act,
                 "reciprocal_hostile": hostile, "max_code_diff": max_diff,
@@ -533,6 +556,102 @@ def qconv_yardsticks(x, w, bias, scale, out) -> dict:
     return {"library_ms": time_ms(lambda: torch._int_mm(xt, w.t())),
             "library": f"torch._int_mm {list(xt.shape)} x {[c_in, w.shape[0]]}",
             **bound(nbytes(x, w, bias, scale, out), {"int8": 2 * b * n * c_in * w.shape[0]})}
+
+
+# The v2.4 stage schedule (models/birdnet_v24.py): (c_in, c_out, stride,
+# expand) per stage, two MBConv blocks each at full width.
+V24_STAGES = [(32, 24, 1, 1), (24, 40, 2, 4), (40, 80, 2, 4), (80, 112, 2, 4),
+              (112, 192, 2, 4), (192, 320, 1, 4)]
+
+
+def qconv_forward_shapes() -> list:
+    """(C_in, C_out, N, act) of the 49 int8 1x1 convs of the full-width
+    v2.4 forward in graph order: per block the expand (silu), the
+    squeeze-excite pair on the pooled map (silu, then sigmoid; N = 1) and
+    the project, then the head conv. check_int8_nodes holds this list
+    against the quantized graph."""
+    shapes, h, w = [], 48, 256  # after the stride-2 stem on [96, 511]
+    for c_in, c_out, stride, expand in V24_STAGES:
+        for block in range(2):
+            cin = c_in if block == 0 else c_out
+            mid, s = cin * expand, stride if block == 0 else 1
+            se = max(mid // 4, 4)
+            shapes.append((cin, mid, h * w, "silu"))
+            h, w = -(-h // s), -(-w // s)
+            shapes += [(mid, se, 1, "silu"), (se, mid, 1, "sigmoid"), (mid, c_out, h * w, "")]
+    shapes.append((320, 1280, h * w, "silu"))
+    return shapes
+
+
+def int_mm_ms(x, w):
+    """torch._int_mm's device time on [B·N, C_in] x [C_in, C_out] (the
+    activations transposed beforehand, not timed), or None where it refuses
+    the shape: its own rules (more than 16 rows, K and N multiples of 8) or
+    cuBLASLt's (CUBLAS_STATUS_NOT_SUPPORTED, raised before any launch)."""
+    b, c_in, n = x.shape
+    if b * n <= 16 or c_in % 8 or w.shape[0] % 8:
+        return None
+    xt = x.permute(0, 2, 1).reshape(-1, c_in).contiguous()
+    try:
+        torch._int_mm(xt, w.t())
+    except RuntimeError as e:
+        if "CUBLAS_STATUS_NOT_SUPPORTED" not in str(e):
+            raise
+        return None
+    return time_ms(lambda: torch._int_mm(xt, w.t()))
+
+
+def phase_qconv_forward(dev) -> dict:
+    """B3 at each of the 49 1x1 convs of one int8 v2.4 forward at batch 32,
+    each against its plain version (the codes rule of phase_qconv). Sums
+    the kernel's device time, the plain version's, the bound and
+    torch._int_mm's over the shapes its rules take (naming the others).
+    Returns the kernels-line summary."""
+    rng = np.random.default_rng(SEED + 7)
+    launches = qc.LAUNCHES["qconv1x1_requant"]
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ms_where_library": 0.0,
+             "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
+    per_shape, rejected, worst = [], [], 0
+    for c_in, c_out, n, act in qconv_forward_shapes():
+        x, w, bias, scale, y_scale = _qconv_case(rng, dev, c_in, c_out, n, False)
+        run = lambda: qc.qconv1x1_requant(x, w, bias, scale, y_scale, act)
+        plain = lambda: qc.qconv1x1_requant_plain(x, w, bias, scale, y_scale, act)
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        _, max_diff, n_diff, ok = compare_codes(got, want, act)
+        if got.shape != (N_SEG, c_out, n) or not ok:
+            raise AssertionError(f"qconv forward {c_in}->{c_out} N {n} {act}: shape "
+                                 f"{tuple(got.shape)}, max code diff {max_diff} on {n_diff}")
+        worst = max(worst, max_diff)
+        ms, plain_ms = kernel_vs_plain_ms(run, plain)
+        mem_s = nbytes(x, w, bias, scale, got) / HBM_BYTES_PER_S
+        ops_s = 2 * N_SEG * n * c_in * c_out / PEAK_OPS_PER_S["int8"]
+        total["ms"] += ms
+        total["plain_ms"] += plain_ms
+        total["bytes_ms"] += 1e3 * mem_s
+        total["ops_ms"] += 1e3 * ops_s
+        total["bound_ms"] += 1e3 * max(mem_s, ops_s)
+        lib_ms = int_mm_ms(x, w)
+        if lib_ms is None:
+            rejected.append(f"{c_in}->{c_out} N {n}")
+        else:
+            total["library_ms"] += lib_ms
+            total["ms_where_library"] += ms
+        per_shape.append([c_in, c_out, n, act, ms, lib_ms])
+    qc.LAUNCHES["qconv1x1_requant"] = launches
+    line = {"phase": "kernel", "name": "qconv1x1_requant_forward", "shapes": len(per_shape),
+            "batch": N_SEG, **total, "us_per_image": 1e3 * total["ms"] / N_SEG,
+            "library_rejects": rejected, "per_shape_ms_and_library_ms": per_shape, "ok": True}
+    emit(line)
+    return {"ms": total["ms"], "plain_ms": total["plain_ms"], "max_abs_err": worst,
+            "library_ms": total["library_ms"],
+            "library": f"torch._int_mm summed over {len(per_shape) - len(rejected)} of the "
+                       f"{len(per_shape)} shapes (the product only; the kernel takes "
+                       f"{total['ms_where_library']:.4f} ms on those); it refuses "
+                       + ", ".join(rejected),
+            "bound_ms": total["bound_ms"],
+            "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations"}
 
 
 def seg_per_s(clf, segs, calls: int = 10) -> float:
@@ -838,8 +957,16 @@ def check_int8_nodes(path: str, policy: str, segs: np.ndarray) -> dict:
                                          f"between the card and the CPU: code diff "
                                          f"{worst_code}, scaled float diff {worst_float}")
             nodes[node.op_type] = nodes.get(node.op_type, 0) + 1
+    # The B3 shapes of the kernel phase's forward line are this graph's.
+    b3 = [(int(host[n.input[0]].shape[1]), int(host[n.input[3]].shape[0]),
+           int(host[n.input[0]].shape[2] * host[n.input[0]].shape[3]),
+           n.attrs.get("_fused_act", ""))
+          for n in model.graph.node
+          if n.op_type == "QLinearConv" and tuple(host[n.input[3]].shape[2:]) == (1, 1)]
+    if b3 != qconv_forward_shapes():
+        raise AssertionError(f"the int8 graph's 1x1 convs {b3} are not qconv_forward_shapes()")
     result = {"nodes_checked": nodes, "max_code_diff": worst_code,
-              "max_scaled_float_diff": worst_float,
+              "max_scaled_float_diff": worst_float, "b3_shapes_as_forward_line": len(b3),
               "transcendental_epilogue_codes": transcendental}
     if transcendental["differing"] > QCONV_MAX_DIFF_SHARE * transcendental["codes"]:
         raise AssertionError(f"int8 nodes ({policy}): {result}")
@@ -915,7 +1042,26 @@ def phase_int8(card: str, segs: np.ndarray, paths: dict, tiny_paths: dict,
     return launches
 
 
+def main_ab() -> int:
+    """``--ab``: B5 at int16 step 144000 (and 72000) and the B3 forward
+    sum only, through wrappers whose signatures every tree since PR 3
+    shares, so that this script beside another tree's package times that
+    tree's kernels. Prints one line per phase and an "ab" line naming the
+    package."""
+    _, smi = phase_device()
+    phase_build()
+    rng = np.random.default_rng(SEED)
+    weights = torch.from_numpy(
+        (rng.normal(size=(N_MELS, 1, FLEN)) * np.sqrt(2.0 / FLEN)).astype(np.float32)).to(CARD)
+    emit({"ab": str(Path(fe.__file__).resolve().parents[2]), "card": smi,
+          "frame_filterbank_logpower": phase_frame_filterbank(CARD, weights),
+          "qconv1x1_requant_forward": phase_qconv_forward(CARD)})
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--ab"]:
+        return main_ab()
     name, smi = phase_device()
     phase_build()
     summary = phase_kernels(CARD)
@@ -938,6 +1084,7 @@ def main() -> int:
     launches = {k: float_launches[k] + stream_launches[k] + int8_launches[k]
                 for k in float_launches}
     launches["frame_filterbank_logpower"] = b5_launches
+    launches["qconv1x1_requant_forward"] = launches["qconv1x1_requant"]
     kernels = []
     for kname, s in summary.items():
         if launches[kname] <= 0:

@@ -51,7 +51,7 @@ def _forwards(path, precision):
     def run(x):
         fwd = jax.jit(jimp.make_forward(j, precision))
         want = np.asarray(fwd(j.params, x)[0], np.float32)
-        got = timp.make_forward(t, precision)(
+        got = timp.make_forward(t, precision, "cpu")(
             timp.params_to_torch(j.params, "cpu"), torch.from_numpy(x)
         )[0]
         return got.float().numpy(), want

@@ -59,7 +59,7 @@ def test_copy_is_byte_identical(rel):
 # quantize_model passes that device through. The comparison drops
 # _collect_absmax from both files and the two device edits from the port's.
 _QUANTIZE_DEVICE_EDITS = [
-    (b'    device="cpu",\n) -> ImportedModel:', b") -> ImportedModel:"),
+    (b'    device=None,\n) -> ImportedModel:', b") -> ImportedModel:"),
     (b"graph=graph, device=device)", b"graph=graph)"),
 ]
 

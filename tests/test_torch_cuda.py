@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _v24_qconv_shapes import v24_qconv_shapes  # noqa: E402
 from birdnet_tpu_torch.compiler._melbank import mel_weight_matrix  # noqa: E402
 from birdnet_tpu_torch.ops.cuda import frontend as fe  # noqa: E402
 from birdnet_tpu_torch.ops.cuda import qconv as qc  # noqa: E402
@@ -187,17 +188,19 @@ def test_classifier_fast_runs_the_kernel(dev, tmp_path, frontend, counter):
         assert np.abs(r.raw_scores - q.raw_scores).max() / scale < 1e-1
 
 
-@pytest.mark.parametrize("c_in,c_out,n,act,hostile", [
-    (24, 96, 48 * 256, "silu", False),
-    (96, 40, 12 * 256, "", False),
-    (1280, 320, 1, "silu", False),
-    (8, 16, 48 * 256, "", True),
-])
+QCONV_CASES = [(*shape, False) for shape in v24_qconv_shapes()] + [(8, 16, 48 * 256, "", True)]
+
+
+@pytest.mark.parametrize("c_in,c_out,n,act,hostile", QCONV_CASES,
+                         ids=[f"{i}-{a}to{b}-n{n}{'-hostile' if h else ''}"
+                              for i, (a, b, n, _, h) in enumerate(QCONV_CASES)])
 def test_qconv1x1_requant_kernel_matches_plain(dev, c_in, c_out, n, act, hostile):
-    """B3 at the int8 v2.4 graph's shapes, batch 32: the plain version's
-    codes (with silu at most 1 code apart on at most 1e-4 of them). The
-    hostile case's output scale 0.3 has an inexact float32 reciprocal."""
-    rng = np.random.default_rng(c_in)
+    """B3 at each of the 49 1x1 convs of the full-width int8 v2.4 forward,
+    batch 32: the plain version's codes (with sigmoid or silu at most 1
+    code apart on at most 1e-4 of them). The hostile case's output scale
+    0.3 has an inexact float32 reciprocal, and a multiply by it would flip
+    codes that the kernel's division keeps."""
+    rng = np.random.default_rng(c_in * 7 + c_out)
     if hostile:
         x = rng.integers(-10, 11, (32, c_in, n))
         w = rng.integers(-3, 4, (c_out, c_in))
@@ -217,10 +220,15 @@ def test_qconv1x1_requant_kernel_matches_plain(dev, c_in, c_out, n, act, hostile
     want = qc.qconv1x1_requant_plain(x, w, b, scale, y_scale, act)
     assert got.shape == want.shape == (32, c_out, n) and got.dtype == torch.int8
     diff = (got.int() - want.int()).abs()
-    if act:
-        assert int(diff.max()) <= 1 and int((diff > 0).sum()) <= 1e-4 * diff.numel()
-    else:
+    if act in ("", "relu"):
         assert torch.equal(got, want)
+    else:
+        assert int(diff.max()) <= 1 and int((diff > 0).sum()) <= 1e-4 * diff.numel()
+    if hostile:
+        acc = torch.matmul(w.double(), x.double()).to(torch.int32) + b.reshape(1, -1, 1)
+        recip = 1.0 / torch.full((1,), float(y_scale), device=dev)
+        by_recip = torch.round(acc.float() * scale.reshape(1, -1, 1) * recip).clamp(-128, 127)
+        assert int((by_recip.to(torch.int8) != want).sum()) > 0
 
 
 @pytest.mark.parametrize("frontend,counter", [
@@ -304,6 +312,35 @@ def test_frame_filterbank_logpower_kernel_matches_plain(dev, audio_dtype, step):
     want = fe.frame_filterbank_logpower_plain(audio, w, **kw)
     assert got.shape == want.shape == (n, 511, M) and got.dtype == torch.float32
     assert _close(got, want, torch.float32)
+    # Against the f64 oracle on two windows: the split-TF32 product keeps
+    # f32 accuracy.
+    scaled = audio.cpu().double() * kw["scale"]
+    windows = torch.stack([scaled[i * step:i * step + S] for i in (0, n - 1)]).numpy()
+    oracle = fe.filterbank_logpower_reference(windows, w.cpu().numpy(), hop=HOP)
+    assert _close(got[[0, n - 1]].cpu(), torch.from_numpy(oracle).transpose(1, 2),
+                  torch.float32)
+
+
+@pytest.mark.parametrize("audio_dtype,limit", [(torch.int16, 4398), (torch.float32, 2165)])
+def test_frame_filterbank_refuses_a_hop_too_large(dev, audio_dtype, limit):
+    """B5's hop limit at 1024 taps and 96 filters (the samples of 16 frames
+    beside the B ring in 227 KB of shared memory): at the limit the kernel
+    runs and agrees with its plain version, one sample above it the wrapper
+    raises and launches nothing."""
+    assert fe.frame_max_hop(FLEN, M, audio_dtype) == limit
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=2 * S) * 0.1
+    audio = torch.from_numpy((x * 32768).astype(np.int16) if audio_dtype == torch.int16
+                             else x.astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.normal(size=(M, FLEN)) * 0.02).astype(np.float32)).to(dev)
+    kw = dict(n_segments=2, step=S // 2, sample_count=S)
+    got = fe.frame_filterbank_logpower(audio, w, hop=limit, **kw)
+    assert _close(got, fe.frame_filterbank_logpower_plain(audio, w, hop=limit, **kw),
+                  torch.float32)
+    assert fe.LAUNCHES["frame_filterbank_logpower"] == 1
+    with pytest.raises(ValueError, match=f"hop {limit + 1}.*up to {limit}"):
+        fe.frame_filterbank_logpower(audio, w, hop=limit + 1, **kw)
+    assert fe.LAUNCHES["frame_filterbank_logpower"] == 1
 
 
 @pytest.mark.parametrize("frontend,counter", [

@@ -428,3 +428,111 @@ def test_frame_filterbank_logpower_rejects_short_audio():
     with pytest.raises(TypeError):
         tfe.frame_filterbank_logpower(torch.zeros(1000, dtype=torch.float64),
                                       torch.zeros(8, 64), **kw)
+
+
+# B5's split-TF32 operands. TF32 keeps 10 of float32's 23 mantissa bits.
+TF32_LOW_BITS = 0x1FFF
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 3e4])
+def test_split_tf32_reconstructs_the_weights(scale):
+    """big has at most 10 mantissa bits (its low 13 bits are zero) and is
+    the nearest TF32 value; big + small gives w within 2^-22 relative."""
+    w = torch.from_numpy((np.random.default_rng(6).normal(size=4096) * scale)
+                         .astype(np.float32))
+    big, small = tfe.split_tf32(w)
+    for part in (big, small):
+        assert not (part.view(torch.int32) & TF32_LOW_BITS).any()
+    assert torch.all((w - big).abs() <= w.abs() * 2.0 ** -11)
+    err = ((big.double() + small.double()) - w.double()).abs()
+    assert torch.all(err <= w.abs().double() * 2.0 ** -22)
+
+
+def test_split_tf32_rounds_ties_away_from_zero():
+    """cvt.rna: a value halfway between two TF32 values goes away from 0."""
+    signed = lambda u: u - (1 << 32) if u >= 1 << 31 else u
+    bits = torch.tensor([signed(b) for b in (0x3F801000, 0xBF801000, 0x3F800FFF)],
+                        dtype=torch.int32)
+    big, _ = tfe.split_tf32(bits.view(torch.float32))
+    assert big.view(torch.int32).tolist() == [signed(b) for b in (0x3F802000, 0xBF802000,
+                                                                   0x3F800000)]
+
+
+def test_split_tf32_is_exact_for_int16_samples():
+    """Every int16 code scaled by 2^-15 (16 significant bits) splits
+    exactly: big + small is the sample."""
+    x = torch.arange(-32768, 32768, dtype=torch.int32).float() / 32768.0
+    big, small = tfe.split_tf32(x)
+    assert torch.equal(big + small, x)
+
+
+def _unpack_tf32(packed):
+    """(w_big, w_small) [groups * cols, taps] from pack_filterbank_tf32."""
+    groups, kchunks, _, col_groups_, kgroups, rows, per = packed.shape
+    parts = packed.permute(2, 0, 1, 3, 4, 5, 6).reshape(2, groups, kchunks, col_groups_, kgroups,
+                                                         rows, per)
+    parts = parts.permute(0, 1, 3, 5, 2, 4, 6)  # [2, g, col group, row, chunk, kgroup, per]
+    flat = parts.reshape(2, groups * col_groups_ * rows, kchunks * kgroups * per)
+    return flat[0], flat[1]
+
+
+@pytest.mark.parametrize("F,K", [(24, 512), (96, 1024), (128, 1000), (160, 1024)])
+def test_pack_filterbank_tf32_reproduces_the_filterbank(F, K):
+    """B5's packed operand [groups, K/32, 2, cols/8, 8, 8, 4] holds the split
+    W [F, K]: big + small is W, zero past F and K."""
+    w = torch.from_numpy(_weights(K, F))
+    packed = tfe.pack_filterbank_tf32(w)
+    groups, cols = tfe.col_groups(F)
+    taps = -(-K // 32) * 32
+    assert tuple(packed.shape) == (groups, taps // 32, 2, cols // 8, 8, 8, 4)
+    assert packed.is_contiguous() and packed.dtype == torch.float32
+    # Core matrix (column group 1, tap group 2) of w_big: columns 8.. x taps 8..
+    big, small = tfe.split_tf32(w[:, 0])
+    assert torch.equal(packed[0, 0, 0, 1, 2], big[8:16, 8:12])
+    got_big, got_small = _unpack_tf32(packed)
+    assert torch.equal(got_big[:F, :K], big) and torch.equal(got_small[:F, :K], small)
+    for pad in (got_big[F:], got_big[:, K:], got_small[F:], got_small[:, K:]):
+        assert not pad.any()
+
+
+@pytest.mark.parametrize("audio_dtype", ["float32", "int16"])
+def test_frame_filterbank_through_split_tf32_matches_plain(audio_dtype):
+    """B5 computed as its kernel does, from the packed operand: the frames
+    split in TF32, then small·big + big·small + big·big summed in float64
+    (the tensor cores' f32 sums are exact enough here): the plain version
+    within its 1e-3 bound, and the f64 oracle too."""
+    S, hop, K, F, step, n_seg = 4000, 280, 1000, 96, 3000, 3
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(n_seg - 1) * step + S + 2 * hop) * 0.2
+    audio = (torch.from_numpy((x * 32768).astype(np.int16)) if audio_dtype == "int16"
+             else torch.from_numpy(x.astype(np.float32)))
+    scale = 1 / 32768 if audio_dtype == "int16" else 1.0
+    w = torch.from_numpy(_weights(K, F)[:, 0])
+    w_big, w_small = (p[:F].double() for p in _unpack_tf32(tfe.pack_filterbank_tf32(w)))
+    kw = dict(n_segments=n_seg, step=step, sample_count=S, hop=hop, scale=scale)
+    want = tfe.frame_filterbank_logpower_plain(audio, w, **kw)
+    n_frames = want.shape[1]
+    taps = w_big.shape[1]
+    span = (n_frames - 1) * hop + taps
+    scaled = torch.nn.functional.pad(audio.float() * scale, (0, taps))
+    frames = scaled[:(n_seg - 1) * step + span].unfold(0, span, step)[:n_seg].unfold(
+        1, taps, hop).clone()
+    frames[..., K:] = 0.0  # the kernel zeroes taps at or past K
+    big, small = (p.double() for p in tfe.split_tf32(frames))
+    y = small @ w_big.t() + big @ w_small.t() + big @ w_big.t()
+    got = torch.log(y * y + 1e-6).float()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=F32_TOL, atol=F32_TOL)
+    segs = torch.stack([(audio.float() * scale)[i * step:i * step + S] for i in range(n_seg)])
+    oracle = tfe.filterbank_logpower_reference(segs.numpy(), w.numpy(), hop=hop)
+    np.testing.assert_allclose(got.numpy(), oracle.transpose(0, 2, 1), rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_packed_filterbank_tf32_is_cached_per_tensor():
+    """B5's pack is made once while the filterbank lives and is unchanged;
+    an in-place change packs it again, as B2's."""
+    w = torch.from_numpy(_weights(512, 24)[:, 0])
+    first = tfe._packed_filterbank_tf32(w)
+    assert tfe._packed_filterbank_tf32(w) is first
+    w.mul_(2.0)
+    again = tfe._packed_filterbank_tf32(w)
+    assert again is not first and torch.equal(again, 2 * first)

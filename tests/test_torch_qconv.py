@@ -13,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
+from _v24_qconv_shapes import v24_qconv_shapes  # noqa: E402
 from birdnet_tpu.ops.pallas.qconv import qconv1x1_requant as j_qconv  # noqa: E402
 from birdnet_tpu_torch.ops.cuda import qconv as qc  # noqa: E402
 
@@ -161,3 +162,86 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         qc.qconv1x1_requant(x, w, None, scale, 1.0, act="gelu")
     with pytest.raises(ValueError, match="CUDA or CPU"):
         qc.qconv1x1_requant(x.to("meta"), w.to("meta"), None, scale.to("meta"), 1.0)
+
+
+def _unpack_weights(packed):
+    """w [tiles * cols, ceil(C_in/32) * 32] from pack_weights' layout."""
+    tiles, kchunks, groups, kgroups, rows, per = packed.shape
+    return packed.permute(0, 2, 4, 1, 3, 5).reshape(tiles * groups * rows,
+                                                     kchunks * kgroups * per)
+
+
+@pytest.mark.parametrize("c_out,tiles,cols", [
+    (6, 1, 16), (16, 1, 16), (24, 1, 32), (40, 1, 48), (80, 2, 48), (96, 2, 48),
+    (112, 2, 64), (160, 3, 64), (320, 5, 64), (1280, 20, 64),
+])
+def test_col_tiles(c_out, tiles, cols):
+    assert qc.col_tiles(c_out) == (tiles, cols)
+    assert cols in qc.COL_TILES and tiles * cols >= c_out > (tiles - 1) * cols
+
+
+_FORWARD = sorted({(c_in, c_out) for c_in, c_out, _, _ in v24_qconv_shapes()})
+
+
+@pytest.mark.parametrize("c_in,c_out", _FORWARD, ids=[f"{a}to{b}" for a, b in _FORWARD])
+def test_pack_weights_reproduces_w_with_zero_padding(c_in, c_out):
+    """B3's packed B operand [tiles, C_in/32, cols/8, 2, 8, 16] for every
+    weight shape of the int8 v2.4 forward: unpacked it is w, zero past
+    C_out and C_in; a core matrix holds 8 rows x 16 channels."""
+    w = torch.from_numpy(np.random.default_rng(c_in * c_out).integers(
+        -128, 128, (c_out, c_in)).astype(np.int8))
+    packed = qc.pack_weights(w)
+    tiles, cols = qc.col_tiles(c_out)
+    k = -(-c_in // 32) * 32
+    assert tuple(packed.shape) == (tiles, k // 32, cols // 8, 2, 8, 16)
+    assert packed.dtype == torch.int8 and packed.is_contiguous()
+    assert torch.equal(packed[0, 0, 0, 0, :min(8, c_out), :min(16, c_in)],
+                       w[:8, :16])
+    flat = _unpack_weights(packed)
+    assert torch.equal(flat[:c_out, :c_in], w)
+    assert not flat[c_out:].any() and not flat[:, c_in:].any()
+
+
+@pytest.mark.parametrize("c_in,c_out,n", [(24, 96, 64), (6, 24, 1), (1280, 320, 3)])
+def test_product_through_packed_weights(c_in, c_out, n):
+    """The int32 sums as the kernel forms them, chunk by chunk of 32
+    channels and tile by tile of columns from the packed operand, equal
+    w @ x."""
+    rng = np.random.default_rng(c_in)
+    x = torch.from_numpy(rng.integers(-128, 128, (2, c_in, n)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-128, 128, (c_out, c_in)).astype(np.int8))
+    packed = qc.pack_weights(w)
+    xt = torch.nn.functional.pad(x.long(), (0, 0, 0, packed.shape[1] * 32 - c_in))
+    acc = 0
+    for c in range(packed.shape[1]):
+        chunk = torch.cat([_unpack_weights(packed[t:t + 1, c:c + 1]) for t in range(packed.shape[0])])
+        acc = acc + torch.einsum("mk,bkn->bmn", chunk.long(), xt[:, 32 * c:32 * c + 32])
+    assert torch.equal(acc[:, :c_out], torch.einsum("mk,bkn->bmn", w.long(), x.long()))
+
+
+def test_packed_weights_are_cached_per_tensor():
+    """The pack of a weight is made once while its tensor lives and is
+    unchanged, found again through a new view of it (the lowering reshapes
+    [C_out, C_in, 1, 1] on every call); an in-place change packs it
+    again."""
+    w4 = torch.from_numpy(np.random.default_rng(1).integers(-128, 128, (40, 24, 1, 1))
+                          .astype(np.int8))
+    first = qc._packed_weights(w4.reshape(40, 24))
+    assert qc._packed_weights(w4.reshape(40, 24)) is first
+    w4.mul_(-1)
+    again = qc._packed_weights(w4.reshape(40, 24))
+    assert again is not first and torch.equal(again, -first)
+    other = w4.reshape(40, 24)[:20]
+    assert tuple(qc._packed_weights(other).shape) == (1, 1, 4, 2, 8, 16)
+
+
+def test_packed_weights_of_an_inference_tensor_are_never_stale():
+    """An inference tensor has no version counter: its pack is built on
+    every call, so an in-place change is always seen."""
+    with torch.inference_mode():
+        w = torch.ones((16, 8), dtype=torch.int8)
+    first = qc._packed_weights(w)
+    with torch.inference_mode():
+        w.mul_(3)
+    assert torch.equal(qc._packed_weights(w), 3 * first)
+

@@ -82,7 +82,7 @@ def _quantize_both(path, calibration, monkeypatch, same_stats):
     monkeypatch.setattr(jq, "_collect_absmax", j_record)
     monkeypatch.setattr(tq, "_collect_absmax", t_record)
     jmodel = jq.quantize_model(jimp.import_onnx(path), calibration)
-    tmodel = tq.quantize_model(timp.import_onnx(path), calibration)
+    tmodel = tq.quantize_model(timp.import_onnx(path), calibration, device="cpu")
     return tmodel, jmodel, recorded["port"], recorded["jax"]
 
 
@@ -140,10 +140,12 @@ def test_quantized_top1_matches_fp32(tiny_path):
     the fp32 winner in the int8 top-3 on every row, max |Δ| < 0.1 and every
     row's logit correlation above 0.98."""
     model = timp.import_onnx(tiny_path)
-    qmodel = tq.quantize_model(model, [_segments(4, seed=1), _segments(4, seed=2)])
+    qmodel = tq.quantize_model(model, [_segments(4, seed=1), _segments(4, seed=2)],
+                               device="cpu")
     x = torch.from_numpy(_segments(4, seed=9))
-    logits = timp.make_forward(model)(timp.params_to_torch(model.params, "cpu"), x)[0].numpy()
-    qlogits = timp.make_forward(qmodel)(timp.params_to_torch(qmodel.params, "cpu"), x)[0].numpy()
+    run = lambda m: timp.make_forward(m, "fp32", "cpu")(
+        timp.params_to_torch(m.params, "cpu"), x)[0].numpy()
+    logits, qlogits = run(model), run(qmodel)
     top3 = np.argsort(qlogits, axis=1)[:, -3:]
     for i, win in enumerate(logits.argmax(axis=1)):
         assert win in top3[i]
@@ -197,7 +199,7 @@ def test_quantize_rejects_model_without_layers():
     )
     model = timp.import_onnx(P.make_model(g))
     with pytest.raises(tbt.ModelLoadError, match="no quantizable layers"):
-        tq.quantize_model(model, [np.ones((1, 4), np.float32)])
+        tq.quantize_model(model, [np.ones((1, 4), np.float32)], device="cpu")
 
 
 def test_quantize_keeps_float_weight_shared_with_unquantized_node():
@@ -224,11 +226,11 @@ def test_quantize_keeps_float_weight_shared_with_unquantized_node():
         output=[P.make_value_info("y", P.DataType.FLOAT, [4, 1])],
     )
     model = timp.import_onnx(P.make_model(g), optimize=False)
-    q = tq.quantize_model(model, [x], quantize_first_layer=True)
+    q = tq.quantize_model(model, [x], quantize_first_layer=True, device="cpu")
     assert "w" in q.params or "w" in q.consts
     xt = torch.from_numpy(x)
-    y_ref = timp.make_forward(model)(timp.params_to_torch(model.params, "cpu"), xt)[0]
-    y_q = timp.make_forward(q)(timp.params_to_torch(q.params, "cpu"), xt)[0]
+    run = lambda m: timp.make_forward(m, "fp32", "cpu")(timp.params_to_torch(m.params, "cpu"), xt)[0]
+    y_ref, y_q = run(model), run(q)
     np.testing.assert_allclose(y_q.numpy(), y_ref.numpy(), rtol=0.1, atol=0.1)
 
 

@@ -158,7 +158,7 @@ def audio():
 
 
 def _port_fast(model, audio):
-    fwd = timp.make_forward(model, "fast")
+    fwd = timp.make_forward(model, "fast", "cpu")
     return fwd(timp.params_to_torch(model.params, "cpu"), torch.from_numpy(audio))[0].float().numpy()
 
 
