@@ -428,6 +428,30 @@ class Classifier:
 
     # -- streaming whole-recording path ---------------------------------------
 
+    def streaming_timeout_scale(
+        self, batch_size: int, n_segments: Optional[int] = None
+    ) -> int:
+        """Factor converting a per-batch timeout budget into a
+        per-superchunk one: the streaming paths wait on whole superchunks
+        (up to MONITORED_MAX_TILES x tile segments, a run with a timeout
+        being monitored), so a timeout meant to bound one
+        ``predict_batch(batch_size)`` call scales to the same per-segment
+        allowance.
+
+        ``n_segments``, when known, caps the scale at the tiles the
+        recording dispatches, ``ceil(n_segments / tile)``: this engine runs
+        exactly that many tiles. The JAX package rounds the count up to its
+        compiled tile buckets (1, 2, 3, 4, 6, 8, 12, 16, ...), so the two
+        agree wherever the count is a bucket size and this one is smaller
+        elsewhere (ROADMAP C, deliberate differences)."""
+        from .compiler.stream import MONITORED_MAX_TILES
+
+        tile = self._streaming_engine().tile
+        tiles = MONITORED_MAX_TILES
+        if n_segments is not None and n_segments > 0:
+            tiles = min(tiles, -(-int(n_segments) // tile))
+        return max(1, -(-tiles * tile // max(1, batch_size)))
+
     def _streaming_engine(self):
         """The streaming engine, built on first use. It shares the per-call
         engine's params (no second copy on the device) and runs at its

@@ -20,13 +20,20 @@ tensor moves its numpy operands to that tensor's device.
 Precision policies, as in the JAX package:
 
 - ``fp32``: everything float32, with TF32 off (see importer.make_forward);
-- ``mixed``: bf16 conv/matmul operands, float32 activations. torch returns
-  a bf16 product, so the output is rounded to bf16 before it is cast back
-  to float32 (the JAX package keeps the float32 accumulator);
+- ``mixed``: bf16 conv/matmul operands, float32 sums and float32
+  activations, as the JAX package's ``preferred_element_type=float32``
+  gives them: the operands are rounded to bf16 and the product runs in
+  float32 (a product of two bf16 values is exact in float32; TF32 is off),
+  or, for a CUDA matmul, ``torch.mm``/``torch.bmm`` with
+  ``out_dtype=float32`` on the bf16 operands;
 - ``fast``: bf16 operands and bf16 activations, float32 accumulation
-  inside the product; the fused frontends and the stage prefix run the
-  CUDA kernels;
+  inside the product and one rounding of its output; the fused frontends
+  and the stage prefix run the CUDA kernels;
 - ``bf16``: as ``fast`` (torch accumulates bf16 products in float32).
+
+The polyphase Conv1d keeps its partial products in float32 under ``mixed``
+and ``fast`` and rounds once, after the shifted adds (the JAX lowering's
+``preferred_element_type``).
 """
 
 from __future__ import annotations
@@ -153,8 +160,36 @@ def _mxu_operands(ctx: OpContext, *xs):
     return xs
 
 
-def _acc_dtype(ctx: OpContext) -> torch.dtype:
-    return torch.bfloat16 if ctx.precision == "bf16" else torch.float32
+def _bf16_in_f32(*xs):
+    """Floating operands rounded to bf16 and held in float32: an f32 product
+    of them is the bf16 product with float32 sums."""
+    return tuple(
+        x.to(torch.bfloat16).float() if x.is_floating_point() else x for x in xs
+    )
+
+
+def _f32_sum_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of floating operands with bf16-rounded operands and float32
+    sums and output. On CUDA a 2-D or batched 3-D product of bf16 operands
+    runs ``torch.mm``/``torch.bmm`` with ``out_dtype=float32`` (an
+    ``[..., K] @ [K, N]`` product is flattened to 2-D); every other case,
+    and every CPU tensor, multiplies the upcast operands in float32."""
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a.is_cuda:
+        if b.ndim == 2 and a.ndim >= 2:
+            y = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+            return y.reshape(*a.shape[:-1], b.shape[-1])
+        if a.ndim == 3 and b.ndim == 3 and a.shape[0] == b.shape[0]:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+def _policy_matmul(ctx: OpContext, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """MatMul/Gemm product under the precision policy (before _out_cast)."""
+    if ctx.precision == "mixed" and a.is_floating_point() and b.is_floating_point():
+        return _f32_sum_matmul(a, b)
+    a2, b2 = _mxu_operands(ctx, a, b)
+    return torch.matmul(a2, b2)
 
 
 def _out_cast(ctx: OpContext, y: torch.Tensor, orig_dtype) -> torch.Tensor:
@@ -222,9 +257,7 @@ op("Sigmoid")(_unary(torch.sigmoid))
 def _matmul(ctx, a, b):
     a = _tensor(ctx, a)
     b = _tensor(ctx, b, a.device)
-    orig = a.dtype
-    a2, b2 = _mxu_operands(ctx, a, b)
-    return [_out_cast(ctx, torch.matmul(a2, b2), orig)]
+    return [_out_cast(ctx, _policy_matmul(ctx, a, b), a.dtype)]
 
 
 @op("Gemm")
@@ -237,9 +270,7 @@ def _gemm(ctx, a, b, c=None):
         a = a.t()
     if int(ctx.attr("transB", 0)):
         b = b.t()
-    orig = a.dtype
-    a2, b2 = _mxu_operands(ctx, a, b)
-    y = _out_cast(ctx, torch.matmul(a2, b2), orig)
+    y = _out_cast(ctx, _policy_matmul(ctx, a, b), a.dtype)
     if alpha != 1.0:
         y = alpha * y
     if c is not None:
@@ -303,12 +334,16 @@ def _polyphase_conv1d(ctx, x, w, b, stride, pads, orig):
     need = rows * s
     if need > length:
         x = F.pad(x, (0, need - length))
-    x2, w2 = _mxu_operands(ctx, x, w)
-    r = x2[:, 0, :need].reshape(n, rows, s)
+    r = x[:, 0, :need].reshape(n, rows, s)
     # Wstack[r, k*C + c] = w[c, k*s + r] (zero-padded past the true kernel).
-    wpad = F.pad(w2[:, 0, :], (0, m * s - k))
+    wpad = F.pad(w[:, 0, :], (0, m * s - k))
     wstack = wpad.reshape(c_out, m, s).permute(2, 1, 0).reshape(s, m * c_out)
-    p = torch.matmul(r, wstack).to(_acc_dtype(ctx))
+    if ctx.precision in ("mixed", "fast"):
+        # float32 partial products, rounded once after the shifted adds.
+        p = _f32_sum_matmul(r, wstack)
+    else:
+        r2, w2 = _mxu_operands(ctx, r, wstack)
+        p = torch.matmul(r2, w2)
     y = p[:, 0:t, 0:c_out]
     for ki in range(1, m):
         y = y + p[:, ki:ki + t, ki * c_out:(ki + 1) * c_out]
@@ -376,7 +411,10 @@ def _conv(ctx, x, w, b=None):
         and (x.shape[2] + sum(pads[0]) - w.shape[2]) // strides[0] >= 0
     ):
         return _polyphase_conv1d(ctx, x, w, b, strides[0], pads[0], orig)
-    x2, w2 = _mxu_operands(ctx, x, w)
+    if ctx.precision == "mixed":
+        x2, w2 = _bf16_in_f32(x, w)  # float32 sums (TF32 is off for cuDNN)
+    else:
+        x2, w2 = _mxu_operands(ctx, x, w)
     y = _conv_nd(x2, w2, strides, dilations, group, pads)
     y = _out_cast(ctx, y, orig)
     if b is not None:

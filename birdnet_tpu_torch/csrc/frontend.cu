@@ -17,7 +17,10 @@
 //     bn_frame_filterbank_max_hop (the TPU's hop % 128 rule is a Mosaic
 //     layout rule).
 // Each computes what its TPU kernel computes, with the same rounding points:
-// the framed samples arrive in the compute type (f32 or bf16), every product
+// the framed samples arrive in the compute type (f32 or bf16; B1 and B2
+// multiply them by their scale in f32 and round back to it, in shared memory
+// after staging, where scale != 1, as the TPU kernels' seg * f32(scale)
+// before the compute-type cast), every product
 // accumulates in f32, B1's power c*c + s*s is rounded to the compute type
 // before the mel projection, B2's y*y + eps rounds the multiply and the add
 // separately, and the log is taken in f32 and rounded on store. B1 and B2
@@ -114,30 +117,31 @@ __host__ __device__ __forceinline__ int tile_span(int hop, int flen) {
   return (kTileFrames - 1) * hop + flen;
 }
 
-// Stage samples [start, start + span) of one segment in shared memory, zero
-// past the segment's end (frames past n_frames read the zeros and are never
-// stored).
+// Stage samples [start, start + span) of one segment in shared memory,
+// times scale (exact at 1), zero past the segment's end (frames past
+// n_frames read the zeros and are never stored).
 __device__ __forceinline__ void load_tile(const float* __restrict__ x, float* s_x,
-                                          int start, int span, int S) {
+                                          int start, int span, int S, float scale) {
   for (int i = threadIdx.x; i < span; i += blockDim.x) {
     const int g = start + i;
-    s_x[i] = g < S ? x[g] : 0.0f;
+    s_x[i] = g < S ? __fmul_rn(x[g], scale) : 0.0f;
   }
 }
 
-// B2: out[n, f, t] = log(y^2 + eps), y = sum_k x[n, t*hop + k] * w[f, k].
+// B2: out[n, f, t] = log(y^2 + eps), y = sum_k scale * x[n, t*hop + k] *
+// w[f, k].
 // wt is the filterbank transposed to [K, F] so that neighbouring threads
 // (neighbouring filters) read neighbouring addresses.
 __global__ void filterbank_logpower_kernel(const float* __restrict__ seg,
                                            const float* __restrict__ wt,
                                            float* __restrict__ out, int S, int K,
                                            int hop, int F, int n_frames,
-                                           float eps) {
+                                           float eps, float scale) {
   extern __shared__ float s_x[];
   const int n = blockIdx.y;
   const int t0 = blockIdx.x * kTileFrames;
   load_tile(seg + static_cast<size_t>(n) * S, s_x, t0 * hop,
-            tile_span(hop, K), S);
+            tile_span(hop, K), S, scale);
   __syncthreads();
 
   constexpr int kGroups = kTileFrames / kFbFramesPerThread;
@@ -186,14 +190,14 @@ __global__ void stft_melspec_kernel(const float* __restrict__ seg,
                                     const float* __restrict__ mel,
                                     float* __restrict__ out, int S, int flen,
                                     int hop, int bins, int M, int n_frames,
-                                    float eps) {
+                                    float eps, float scale) {
   extern __shared__ float smem[];
   const int span = tile_span(hop, flen);
   float* s_x = smem;
   float* s_p = smem + span;  // [kTileFrames, bins]
   const int n = blockIdx.y;
   const int t0 = blockIdx.x * kTileFrames;
-  load_tile(seg + static_cast<size_t>(n) * S, s_x, t0 * hop, span, S);
+  load_tile(seg + static_cast<size_t>(n) * S, s_x, t0 * hop, span, S, scale);
   __syncthreads();
 
   constexpr int kGroups = kTileFrames / kStftFramesPerThread;
@@ -410,6 +414,19 @@ __device__ __forceinline__ int stage_span(const T* base, long long a0, int len, 
   return static_cast<int>(a0 - a_al);
 }
 
+// Once the span has landed: every staged sample times scale, in f32, rounded
+// back to bf16, as the plain version scales the segments before framing
+// (the JAX kernels' seg * f32(scale) before the compute-type cast). Waits
+// for this thread's copies and for every thread's; the caller syncs again
+// before reading the span.
+__device__ __forceinline__ void scale_span(bf16* s, int staged, float scale) {
+  cp_async_wait_all();
+  __syncthreads();
+  for (int i = threadIdx.x; i < staged; i += blockDim.x) {
+    s[i] = __float2bfloat16_rn(__fmul_rn(__bfloat162float(s[i]), scale));
+  }
+}
+
 __device__ __forceinline__ unsigned pair16(const unsigned short* h, int i) {
   return static_cast<unsigned>(h[i]) | (static_cast<unsigned>(h[i + 1]) << 16);
 }
@@ -534,7 +551,7 @@ __global__ void __launch_bounds__(128 * kMaxWarpgroups)
     filterbank_logpower_mma_kernel(const bf16* __restrict__ base, int lead0,
                                    const bf16* __restrict__ wpack, bf16* __restrict__ out,
                                    int S, int K, int hop, int F, int n_frames, int kchunks,
-                                   int span_len, int span_alloc, float eps) {
+                                   int span_len, int span_alloc, float eps, float scale) {
   constexpr int kCols = NT * 8;
   constexpr unsigned kChunkBytes = sizeof(bf16) * kCols * kMmaKc;
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -560,6 +577,7 @@ __global__ void __launch_bounds__(128 * kMaxWarpgroups)
   const int lead = stage_span(base, seg0 + static_cast<long long>(t0) * hop, span_len,
                               seg0 + S, s_x);
   cp_async_commit();
+  if (scale != 1.0f) scale_span(s_x, (lead + span_len + 7) / 8 * 8, scale);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -658,7 +676,7 @@ __global__ void __launch_bounds__(128 * kMaxWarpgroups)
                             const bf16* __restrict__ bpack, const bf16* __restrict__ mpack,
                             bf16* __restrict__ out, int S, int K, int hop, int M,
                             int n_frames, int kchunks, int bchunks, int span_len,
-                            int span_alloc, float eps) {
+                            int span_alloc, float eps, float scale) {
   constexpr int kMels = NTM * 8;
   constexpr unsigned kChunkBytes = sizeof(bf16) * kStftCols * kMmaKc;
   constexpr unsigned kMelBytes = sizeof(bf16) * kMels * kMmaKc;
@@ -689,6 +707,7 @@ __global__ void __launch_bounds__(128 * kMaxWarpgroups)
   const int lead = stage_span(base, seg0 + static_cast<long long>(t0) * hop, span_len,
                               seg0 + S, s_x);
   cp_async_commit();
+  if (scale != 1.0f) scale_span(s_x, (lead + span_len + 7) / 8 * 8, scale);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -1090,7 +1109,7 @@ bool plan_mma(const void* seg, int S, int K, int hop, bool stft, int cols, MmaPl
 template <int NT, int kLoad>
 int launch_filterbank_mma(const MmaPlan& pl, const void* wpack, void* out, int N, int S,
                           int K, int hop, int F, int groups, int n_frames, float eps,
-                          cudaStream_t stream) {
+                          float scale, cudaStream_t stream) {
   auto kernel = filterbank_logpower_mma_kernel<NT, kLoad>;
   cudaError_t err = set_smem(kernel, pl.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1098,26 +1117,26 @@ int launch_filterbank_mma(const MmaPlan& pl, const void* wpack, void* out, int N
   const dim3 grid((n_frames + tile_rows - 1) / tile_rows, N, groups);
   kernel<<<grid, 128 * pl.warpgroups, pl.smem, stream>>>(
       pl.base, pl.lead0, static_cast<const bf16*>(wpack), static_cast<bf16*>(out), S, K,
-      hop, F, n_frames, (K + kMmaKc - 1) / kMmaKc, pl.span_len, pl.span_alloc, eps);
+      hop, F, n_frames, (K + kMmaKc - 1) / kMmaKc, pl.span_len, pl.span_alloc, eps, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NT>
 int dispatch_filterbank_mma(const MmaPlan& pl, const void* wpack, void* out, int N,
                             int S, int K, int hop, int F, int groups, int n_frames,
-                            float eps, cudaStream_t stream) {
+                            float eps, float scale, cudaStream_t stream) {
   if (pl.load == kMatrix) {
     return launch_filterbank_mma<NT, kMatrix>(pl, wpack, out, N, S, K, hop, F, groups,
-                                              n_frames, eps, stream);
+                                              n_frames, eps, scale, stream);
   }
   return launch_filterbank_mma<NT, kHalves>(pl, wpack, out, N, S, K, hop, F, groups,
-                                            n_frames, eps, stream);
+                                            n_frames, eps, scale, stream);
 }
 
 template <int NTM, int kLoad>
 int launch_stft_mma(const MmaPlan& pl, const void* bpack, const void* mpack, void* out,
                     int N, int S, int K, int hop, int M, int bchunks, int groups,
-                    int n_frames, float eps, cudaStream_t stream) {
+                    int n_frames, float eps, float scale, cudaStream_t stream) {
   auto kernel = stft_melspec_mma_kernel<NTM, kLoad>;
   cudaError_t err = set_smem(kernel, pl.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1126,20 +1145,20 @@ int launch_stft_mma(const MmaPlan& pl, const void* bpack, const void* mpack, voi
   kernel<<<grid, 128 * pl.warpgroups, pl.smem, stream>>>(
       pl.base, pl.lead0, static_cast<const bf16*>(bpack), static_cast<const bf16*>(mpack),
       static_cast<bf16*>(out), S, K, hop, M, n_frames, (K + kMmaKc - 1) / kMmaKc, bchunks,
-      pl.span_len, pl.span_alloc, eps);
+      pl.span_len, pl.span_alloc, eps, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int NTM>
 int dispatch_stft_mma(const MmaPlan& pl, const void* bpack, const void* mpack, void* out,
                       int N, int S, int K, int hop, int M, int bchunks, int groups,
-                      int n_frames, float eps, cudaStream_t stream) {
+                      int n_frames, float eps, float scale, cudaStream_t stream) {
   if (pl.load == kMatrix) {
     return launch_stft_mma<NTM, kMatrix>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks,
-                                         groups, n_frames, eps, stream);
+                                         groups, n_frames, eps, scale, stream);
   }
   return launch_stft_mma<NTM, kHalves>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks,
-                                       groups, n_frames, eps, stream);
+                                       groups, n_frames, eps, scale, stream);
 }
 
 // The geometry of a B5 launch: the input's 16-byte-aligned base and its
@@ -1214,7 +1233,8 @@ int dispatch_frame_tf32(const void* audio, const void* wpack, void* out, int N,
 
 extern "C" int bn_filterbank_logpower_f32(const void* seg, const void* wt, void* out,
                                           int N, int S, int K, int hop, int F,
-                                          int n_frames, float eps, void* stream) {
+                                          int n_frames, float eps, float scale,
+                                          void* stream) {
   const size_t smem = sizeof(float) * tile_span(hop, K);
   cudaError_t err = set_smem(filterbank_logpower_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1223,14 +1243,14 @@ extern "C" int bn_filterbank_logpower_f32(const void* seg, const void* wt, void*
   const int threads = round_up_threads(half * (kTileFrames / kFbFramesPerThread));
   filterbank_logpower_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(seg), static_cast<const float*>(wt),
-      static_cast<float*>(out), S, K, hop, F, n_frames, eps);
+      static_cast<float*>(out), S, K, hop, F, n_frames, eps, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int bn_stft_melspec_f32(const void* seg, const void* bc, const void* bs,
                                    const void* mel, void* out, int N, int S, int flen,
                                    int hop, int bins, int M, int n_frames, float eps,
-                                   void* stream) {
+                                   float scale, void* stream) {
   const size_t smem =
       sizeof(float) * (tile_span(hop, flen) + static_cast<size_t>(kTileFrames) * bins);
   cudaError_t err = set_smem(stft_melspec_kernel, smem);
@@ -1241,7 +1261,7 @@ extern "C" int bn_stft_melspec_f32(const void* seg, const void* bc, const void* 
   stft_melspec_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(seg), static_cast<const float*>(bc),
       static_cast<const float*>(bs), static_cast<const float*>(mel),
-      static_cast<float*>(out), S, flen, hop, bins, M, n_frames, eps);
+      static_cast<float*>(out), S, flen, hop, bins, M, n_frames, eps, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1249,15 +1269,15 @@ extern "C" int bn_stft_melspec_f32(const void* seg, const void* bc, const void* 
 extern "C" int bn_filterbank_logpower_bf16(const void* seg, const void* wpack, void* out,
                                            int N, int S, int K, int hop, int F, int cols,
                                            int groups, int n_frames, float eps,
-                                           void* stream) {
+                                           float scale, void* stream) {
   MmaPlan pl;
   if (!plan_mma(seg, S, K, hop, false, cols, &pl)) return kSpanTooLarge;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cols) {
-    case 32: return dispatch_filterbank_mma<4>(pl, wpack, out, N, S, K, hop, F, groups, n_frames, eps, s);
-    case 64: return dispatch_filterbank_mma<8>(pl, wpack, out, N, S, K, hop, F, groups, n_frames, eps, s);
-    case 96: return dispatch_filterbank_mma<12>(pl, wpack, out, N, S, K, hop, F, groups, n_frames, eps, s);
-    case 128: return dispatch_filterbank_mma<16>(pl, wpack, out, N, S, K, hop, F, groups, n_frames, eps, s);
+    case 32: return dispatch_filterbank_mma<4>(pl, wpack, out, N, S, K, hop, F, groups, n_frames, eps, scale, s);
+    case 64: return dispatch_filterbank_mma<8>(pl, wpack, out, N, S, K, hop, F, groups, n_frames, eps, scale, s);
+    case 96: return dispatch_filterbank_mma<12>(pl, wpack, out, N, S, K, hop, F, groups, n_frames, eps, scale, s);
+    case 128: return dispatch_filterbank_mma<16>(pl, wpack, out, N, S, K, hop, F, groups, n_frames, eps, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1267,15 +1287,15 @@ extern "C" int bn_filterbank_logpower_bf16(const void* seg, const void* wpack, v
 extern "C" int bn_stft_melspec_bf16(const void* seg, const void* bpack, const void* mpack,
                                     void* out, int N, int S, int K, int hop, int M,
                                     int bchunks, int cols, int groups, int n_frames,
-                                    float eps, void* stream) {
+                                    float eps, float scale, void* stream) {
   MmaPlan pl;
   if (!plan_mma(seg, S, K, hop, true, cols, &pl)) return kSpanTooLarge;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cols) {
-    case 32: return dispatch_stft_mma<4>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks, groups, n_frames, eps, s);
-    case 64: return dispatch_stft_mma<8>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks, groups, n_frames, eps, s);
-    case 96: return dispatch_stft_mma<12>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks, groups, n_frames, eps, s);
-    case 128: return dispatch_stft_mma<16>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks, groups, n_frames, eps, s);
+    case 32: return dispatch_stft_mma<4>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks, groups, n_frames, eps, scale, s);
+    case 64: return dispatch_stft_mma<8>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks, groups, n_frames, eps, scale, s);
+    case 96: return dispatch_stft_mma<12>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks, groups, n_frames, eps, scale, s);
+    case 128: return dispatch_stft_mma<16>(pl, bpack, mpack, out, N, S, K, hop, M, bchunks, groups, n_frames, eps, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

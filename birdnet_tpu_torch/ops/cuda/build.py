@@ -109,20 +109,20 @@ def build() -> Path:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bn_filterbank_logpower_f32.argtypes = [p, p, p, i, i, i, i, i, i, f, p]
+    lib.bn_filterbank_logpower_f32.argtypes = [p, p, p, i, i, i, i, i, i, f, f, p]
     lib.bn_filterbank_logpower_f32.restype = i
-    lib.bn_filterbank_logpower_bf16.argtypes = [p, p, p, i, i, i, i, i, i, i, i, f, p]
+    lib.bn_filterbank_logpower_bf16.argtypes = [p, p, p, i, i, i, i, i, i, i, i, f, f, p]
     lib.bn_filterbank_logpower_bf16.restype = i
-    lib.bn_stft_melspec_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, p]
+    lib.bn_stft_melspec_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, f, p]
     lib.bn_stft_melspec_f32.restype = i
-    lib.bn_stft_melspec_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
+    lib.bn_stft_melspec_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, f, f, p]
     lib.bn_stft_melspec_bf16.restype = i
     lib.bn_frontend_bf16_max_hop.argtypes = [i, i, i]
     lib.bn_frontend_bf16_max_hop.restype = i
     lib.bn_qconv1x1_requant.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, p]
     lib.bn_qconv1x1_requant.restype = i
     ints, ptrs = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_void_p)
-    lib.bn_stage_stack_forward.argtypes = [i, i, i, ints, ptrs, p, p, p, p, p, p,
+    lib.bn_stage_stack_forward.argtypes = [i, i, i, ints, ptrs, p, p, p, p, p, p, p,
                                            i, i, i, i, p]
     lib.bn_stage_stack_forward.restype = i
     lib.bn_frame_filterbank_logpower.argtypes = [i, p, p, p, i, ctypes.c_longlong,

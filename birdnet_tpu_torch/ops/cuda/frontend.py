@@ -26,8 +26,9 @@ Three kernels, in ``birdnet_tpu_torch/csrc/frontend.cu``:
 
 B1 and B2 take segments ``[N, S]`` in the compute dtype (float32 or bfloat16) and
 return ``[N, F|M, T]`` in that dtype, the mel-image orientation. They keep
-the TPU kernels' rounding points: the framed samples and the weights are in
-the compute dtype, products accumulate in float32, B1's power is rounded to
+the TPU kernels' rounding points: the samples times ``scale`` (in float32,
+skipped at 1) and the weights are in the compute dtype, products accumulate
+in float32, B1's power is rounded to
 the compute dtype before the mel product, and the log is taken in float32.
 In bfloat16 (the ``fast``/``bf16`` main path) they run on the tensor cores
 (``wgmma``), with their B operands packed on the host into the layout the
@@ -109,10 +110,15 @@ def _filterbank(weights: torch.Tensor) -> torch.Tensor:
     return weights.reshape(weights.shape[0], weights.shape[-1])
 
 
-def _frames(segments: torch.Tensor, flen: int, hop: int) -> torch.Tensor:
-    """[N, S] -> [N, T, flen] float32 frames (values already rounded to the
-    compute dtype, which is the segments' dtype)."""
-    return segments.float().unfold(-1, flen, hop)
+def _frames(segments: torch.Tensor, flen: int, hop: int, scale: float = 1.0) -> torch.Tensor:
+    """[N, S] -> [N, T, flen] float32 frames of the samples times ``scale``
+    (in float32), rounded to the compute dtype, which is the segments'
+    dtype: the JAX kernels' ``seg * f32(scale)`` before the compute-type
+    cast."""
+    x = segments.float()
+    if scale != 1.0:
+        x = (x * scale).to(segments.dtype).float()
+    return x.unfold(-1, flen, hop)
 
 
 def bf16_max_hop(flen: int, n_cols: int, *, stft: bool) -> int:
@@ -153,12 +159,13 @@ def _launch_ready(segments: torch.Tensor, *others: torch.Tensor) -> None:
 
 
 def filterbank_logpower_plain(segments: torch.Tensor, weights: torch.Tensor,
-                              *, hop: int, eps: float = 1e-6) -> torch.Tensor:
+                              *, hop: int, eps: float = 1e-6,
+                              scale: float = 1.0) -> torch.Tensor:
     """Plain PyTorch version of :func:`segments_filterbank_logpower`."""
     _check_segments(segments)
     weights = _filterbank(weights)
     _n_frames(segments.shape[1], weights.shape[1], hop)
-    frames = _frames(segments, weights.shape[1], hop)
+    frames = _frames(segments, weights.shape[1], hop, scale)
     w = weights.to(segments.dtype).float()
     y = torch.matmul(frames, w.t())  # [N, T, F] float32
     out = torch.log(y * y + eps)
@@ -243,13 +250,15 @@ def _packed_filterbank(weights: torch.Tensor) -> torch.Tensor:
 
 
 def segments_filterbank_logpower(segments: torch.Tensor, weights: torch.Tensor,
-                                 *, hop: int, eps: float = 1e-6) -> torch.Tensor:
+                                 *, hop: int, eps: float = 1e-6,
+                                 scale: float = 1.0) -> torch.Tensor:
     """Conv-form frontend over segments ``[N, S]``: returns ``[N, F, T]``
     ``log((frames @ Wᵀ)² + eps)`` in the segments' dtype, where ``weights``
-    is the Conv1d filterbank ``[F, 1, K]`` or ``[F, K]``."""
+    is the Conv1d filterbank ``[F, 1, K]`` or ``[F, K]`` and the frames hold
+    the samples times ``scale`` (applied in the kernel)."""
     _check_segments(segments)
     if segments.device.type == "cpu":
-        return filterbank_logpower_plain(segments, weights, hop=hop, eps=eps)
+        return filterbank_logpower_plain(segments, weights, hop=hop, eps=eps, scale=scale)
     n, sample_count = segments.shape
     n_filters, kernel_size = _filterbank(weights).shape
     n_frames = _n_frames(sample_count, kernel_size, hop)
@@ -263,7 +272,7 @@ def segments_filterbank_logpower(segments: torch.Tensor, weights: torch.Tensor,
         status = lib.bn_filterbank_logpower_bf16(
             segments.data_ptr(), wpack.data_ptr(), out.data_ptr(), n, sample_count,
             kernel_size, hop, n_filters, 8 * wpack.shape[2], wpack.shape[0], n_frames,
-            float(eps), stream,
+            float(eps), float(scale), stream,
         )
         _check_span(status, hop, kernel_size, n_filters, stft=False)
     else:
@@ -271,7 +280,7 @@ def segments_filterbank_logpower(segments: torch.Tensor, weights: torch.Tensor,
         _launch_ready(segments, wt)
         status = lib.bn_filterbank_logpower_f32(
             segments.data_ptr(), wt.data_ptr(), out.data_ptr(), n, sample_count,
-            kernel_size, hop, n_filters, n_frames, float(eps), stream,
+            kernel_size, hop, n_filters, n_frames, float(eps), float(scale), stream,
         )
     check(status, "filterbank_logpower kernel")
     LAUNCHES["filterbank_logpower"] += 1
@@ -363,14 +372,14 @@ def _bases_for(window, mel, dtype, device, packed=False):
 
 
 def stft_melspec_plain(segments: torch.Tensor, window, mel, *, hop: int,
-                       eps: float = 1e-6) -> torch.Tensor:
+                       eps: float = 1e-6, scale: float = 1.0) -> torch.Tensor:
     """Plain PyTorch version of :func:`segments_stft_melspec`."""
     _check_segments(segments)
     bc, bs, mel_used = (
         b.float() for b in _bases_for(window, mel, segments.dtype, segments.device)
     )
     _n_frames(segments.shape[1], bc.shape[0], hop)
-    frames = _frames(segments, bc.shape[0], hop)
+    frames = _frames(segments, bc.shape[0], hop, scale)
     c = torch.matmul(frames, bc)
     s = torch.matmul(frames, bs)
     power = (c * c + s * s).to(segments.dtype).float()
@@ -379,14 +388,15 @@ def stft_melspec_plain(segments: torch.Tensor, window, mel, *, hop: int,
 
 
 def segments_stft_melspec(segments: torch.Tensor, window, mel, *, hop: int,
-                          eps: float = 1e-6) -> torch.Tensor:
-    """STFT-form frontend over segments ``[N, S]``: framing at ``hop``,
-    windowed DFT, power, mel projection and ``log(x + eps)``. ``window``
-    ``[flen]`` and ``mel`` ``[flen//2+1, M]`` are host arrays. Returns
-    ``[N, M, T]`` in the segments' dtype."""
+                          eps: float = 1e-6, scale: float = 1.0) -> torch.Tensor:
+    """STFT-form frontend over segments ``[N, S]``: framing at ``hop`` of
+    the samples times ``scale`` (applied in the kernel), windowed DFT,
+    power, mel projection and ``log(x + eps)``. ``window`` ``[flen]`` and
+    ``mel`` ``[flen//2+1, M]`` are host arrays. Returns ``[N, M, T]`` in the
+    segments' dtype."""
     _check_segments(segments)
     if segments.device.type == "cpu":
-        return stft_melspec_plain(segments, window, mel, hop=hop, eps=eps)
+        return stft_melspec_plain(segments, window, mel, hop=hop, eps=eps, scale=scale)
     n, sample_count = segments.shape
     flen = int(np.asarray(window).size)
     n_mels = int(np.asarray(mel).shape[-1])
@@ -401,7 +411,7 @@ def segments_stft_melspec(segments: torch.Tensor, window, mel, *, hop: int,
         status = lib.bn_stft_melspec_bf16(
             segments.data_ptr(), bases.data_ptr(), melp.data_ptr(), out.data_ptr(), n,
             sample_count, flen, hop, n_mels, bases.shape[0], 8 * melp.shape[2],
-            melp.shape[0], n_frames, float(eps), stream,
+            melp.shape[0], n_frames, float(eps), float(scale), stream,
         )
         _check_span(status, hop, flen, n_mels, stft=True)
     else:
@@ -410,7 +420,7 @@ def segments_stft_melspec(segments: torch.Tensor, window, mel, *, hop: int,
         status = lib.bn_stft_melspec_f32(
             segments.data_ptr(), bc.data_ptr(), bs.data_ptr(), mel_used.data_ptr(),
             out.data_ptr(), n, sample_count, flen, hop, bc.shape[1], n_mels, n_frames,
-            float(eps), stream,
+            float(eps), float(scale), stream,
         )
     check(status, "stft_melspec kernel")
     LAUNCHES["stft_melspec"] += 1

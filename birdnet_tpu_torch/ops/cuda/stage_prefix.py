@@ -27,11 +27,17 @@ takes :func:`stage_stack_forward_plain`, a CUDA tensor launches the kernel
 (``birdnet_tpu_torch/csrc/stage_prefix.cu``, built at first use) or raises.
 ``LAUNCHES`` counts kernel launches. Weights go through
 :func:`prepare_weights` once per device and compute type.
+
+In bfloat16 (the ``fast``/``bf16`` lowerings) both 1x1 convs run on the
+tensor cores (``mma.sync`` m16n8k16, bf16 operands, float32 sums) from bf16
+shared memory; in float32 the kernel keeps f32 SIMT FMAs. The two have
+their own tile plans (:func:`launch_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
@@ -44,14 +50,24 @@ LAUNCHES = {"stage_stack_forward": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Launch geometry shared with csrc/stage_prefix.cu: threads per block,
-# channels staged per pass, the 1x1 convs' register tile (pixels x
-# channels), the depthwise run length, and the shared memory a block may
-# take (half of the SM's, so two blocks fit on one SM).
+# the depthwise run length, and the shared memory a block may take (half of
+# the SM's, so two blocks fit on one SM). The float32 SIMT kernels: channels
+# staged per pass and the 1x1 convs' register tile (pixels x channels). The
+# bfloat16 tensor-core kernels: warps per block; expanded channels per
+# block of launch (a) and the chunks of them it may take at a time; the
+# pixels (one 16-row MMA tile per warp), the channels per cp.async stage and
+# the output channels of a block of launch (b).
 _THREADS = 256
-_CHUNK = 32
-_PX, _CH = 4, 8
 _RUN = 4
 _SMEM_BUDGET = 110 * 1024
+_CHUNK = 32
+_PX, _CH = 4, 8
+_WARPS = _THREADS // 32
+_MMA_GROUPS = (64, 32)
+_MMA_CHUNKS = (32, 16)
+_PROJ_PX = 16 * _WARPS
+_PROJ_KC = 32
+_PROJ_COLS = 128
 
 
 def reset_launches() -> None:
@@ -189,48 +205,154 @@ def _round_up(n: int, m: int) -> int:
 
 
 def _expand_dw_smem(c_in: int, stride: int, th: int, tw: int) -> int:
-    """Shared bytes of launch (a) for an output tile th x tw: the input
-    tile with its halo (c_in planes), one chunk of expanded planes, and the
-    chunk's expand weights, all float32; planes pitched to ``_PX`` floats."""
+    """Shared bytes of the float32 launch (a) for an output tile th x tw:
+    the input tile with its halo (c_in planes), one chunk of expanded planes,
+    and the chunk's expand weights, all float32; planes pitched to ``_PX``
+    floats."""
     pitch = _round_up((stride * (th - 1) + 3) * (stride * (tw - 1) + 3), _PX)
     return 4 * (c_in * pitch + _CHUNK * pitch + c_in * _CHUNK)
 
 
 def _project_smem(c_mid: int, c_se: int, c_out: int, p: int) -> int:
-    """Shared bytes of launch (b): one chunk of h3 for p pixels and of the
-    project weights, then gate, mean and s1."""
+    """Shared bytes of the float32 launch (b): one chunk of h3 for p pixels
+    and of the project weights, then gate, mean and s1."""
     return 4 * (_CHUNK * (p + _round_up(c_out, _CH)) + 2 * c_mid + c_se)
 
 
-def launch_plan(blocks: Sequence[BlockGeom], h: int, w: int) -> List[dict]:
-    """Per block: its input and output size, the depthwise output tile
-    ``(th, tw)`` and tile count of launch (a), the largest that fits
-    ``_SMEM_BUDGET``; and the pixels ``p`` per block of launch (b), as many
-    as give every thread one ``_PX`` x ``_CH`` register tile."""
+def _mma_pitch(n: int) -> int:
+    """Pitch (elements) of bf16 rows that ldmatrix reads: an odd multiple of
+    8, so that the 8 rows of one matrix fall on distinct bank groups."""
+    n = _round_up(n, 8)
+    return n if (n // 8) % 2 else n + 8
+
+
+def _mma_expand_smem(c_in: int, stride: int, th: int, tw: int, ch: int, cg: int) -> int:
+    """Shared bytes of the bfloat16 launch (a) (csrc's expand_smem): the
+    input tile with its halo as bf16 channel planes, K = c_in padded to 16,
+    the halo's pixels padded to 16; the group's ``cg`` rows of expand
+    weights (bf16); one chunk of ``ch`` expanded planes in float32; a bit
+    per halo pixel."""
+    k = _round_up(c_in, 16)
+    m = _round_up((stride * (th - 1) + 3) * (stride * (tw - 1) + 3), 16)
+    return (2 * k * _mma_pitch(m) + 2 * cg * _mma_pitch(k) + 4 * ch * (_round_up(m, 8) + 4)
+            + 4 * (m // 32 + 1))
+
+
+def _mma_project_smem(c_mid: int, c_out: int) -> int:
+    """Shared bytes of the bfloat16 launch (b) (csrc's project_smem): the
+    project weights (bf16, K = c_mid padded to 16, up to ``_PROJ_COLS``
+    output channels padded to 16), which the float32 output tile then
+    reuses; two float32 cp.async stages of h2; one stage of h3 (bf16); the
+    gate."""
+    cols = min(_PROJ_COLS, _round_up(c_out, 16))
+    w = max(2 * cols * _mma_pitch(_round_up(c_mid, 16)), 4 * cols * (_PROJ_PX + 4))
+    return (w + 4 * 2 * _PROJ_KC * _PROJ_PX + 2 * _PROJ_KC * _mma_pitch(_PROJ_PX)
+            + 4 * _round_up(c_mid, 4))
+
+
+def halo_factor(h: int, w: int, stride: int, th: int, tw: int) -> float:
+    """The expand's work on output tiles th x tw of a pad-1 3x3 conv at
+    ``stride`` over an h x w input: the input pixels inside the image that
+    the tiles' halos cover, summed over the tiles, over h * w (1 when the
+    tiles' halos do not overlap)."""
+    def cover(n: int, t: int) -> int:
+        n_out = _out_size(n, stride)
+        return sum(min(n - 1, stride * (min(o + t, n_out) - 1) + 1) - max(0, stride * o - 1) + 1
+                   for o in range(0, n_out, t))
+
+    return cover(h, th) * cover(w, tw) / (h * w)
+
+
+def _simt_block_plan(g: BlockGeom, ho: int, wo: int) -> dict:
+    """The float32 SIMT kernels' tiles: the largest output tile of launch
+    (a) that fits ``_SMEM_BUDGET``, and the pixels ``p`` per block of launch
+    (b), as many as give every thread one ``_PX`` x ``_CH`` register
+    tile."""
+    th, tw = 8, 32
+    while _expand_dw_smem(g.c_in, g.stride, th, tw) > _SMEM_BUDGET:
+        if th > 1:
+            th //= 2
+        elif tw > _RUN:
+            tw //= 2
+        else:
+            raise ValueError(f"block {g}: c_in too large for the kernel")
+    octs = -(-g.c_out // _CH)
+    if octs > _THREADS:
+        raise ValueError(f"block {g}: c_out too large for the kernel")
+    p = min(_PX * (_THREADS // octs), _round_up(ho * wo, _PX))
+    while _project_smem(g.c_mid, g.c_se, g.c_out, p) > _SMEM_BUDGET:
+        if p == _PX:
+            raise ValueError(f"block {g}: c_mid too large for the kernel")
+        p = _round_up(p // 2, _PX)
+    return dict(th=th, tw=tw, p=p)
+
+
+_TILE_ROWS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
+_TILE_COLS = (8, 16, 32, 64, 128)
+
+
+def _mma_block_plan(g: BlockGeom, h: int, w: int, ho: int, wo: int) -> dict:
+    """The bfloat16 tensor-core kernels' tiles: of the output tiles (rows
+    from ``_TILE_ROWS`` or all ``ho``, columns from ``_TILE_COLS`` or all
+    ``wo`` rounded to a run), expanded channels per block (``_MMA_GROUPS``,
+    up to c_mid) and chunks of them (``_MMA_CHUNKS``) whose launch (a) fits
+    ``_SMEM_BUDGET``, the one of the least halo factor (to 0.01), then the
+    larger group (fewer blocks staging the same input tile), then the
+    larger chunk (fewer passes over it), then the larger tile. Launch (b)'s
+    blocks are fixed (``_PROJ_PX`` pixels)."""
+    smem_b = _mma_project_smem(g.c_mid, g.c_out)
+    if smem_b > _SMEM_BUDGET:
+        raise ValueError(f"block {g}: c_mid too large for the kernel")
+    rows = sorted({t for t in _TILE_ROWS if t < ho} | {ho})
+    wide = _round_up(wo, _RUN)
+    cols = sorted({t for t in _TILE_COLS if t < wide} | {min(wide, _TILE_COLS[-1])})
+    groups = [cg for cg in _MMA_GROUPS if cg == _MMA_GROUPS[-1] or cg <= _round_up(g.c_mid, 16)]
+    best = None
+    for th in rows:
+        for tw in cols:
+            halo = halo_factor(h, w, g.stride, th, tw)
+            for cg in groups:
+                for ch in _MMA_CHUNKS:
+                    smem = _mma_expand_smem(g.c_in, g.stride, th, tw, ch, cg)
+                    if smem > _SMEM_BUDGET or cg % ch:
+                        continue
+                    key = (round(halo, 2), -cg, -ch, -th * tw)
+                    if best is None or key < best[0]:
+                        best = (key, dict(th=th, tw=tw, ch=ch, cg=cg, halo=halo, smem_a=smem))
+    if best is None:
+        raise ValueError(f"block {g}: c_in too large for the kernel")
+    # The MMA shapes: the expand's K (c_in) and the project's K (c_mid) and
+    # N (c_out), each zero-padded to 16.
+    return dict(best[1], smem_b=smem_b, k_expand=_round_up(g.c_in, 16),
+                k_project=_round_up(g.c_mid, 16), n_project=_round_up(g.c_out, 16))
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(blocks: Tuple[BlockGeom, ...], h: int, w: int, mma: bool) -> Tuple[dict, ...]:
     h, w = _out_size(h, 2), _out_size(w, 2)
     plan = []
     for g in blocks:
         ho, wo = _out_size(h, g.stride), _out_size(w, g.stride)
-        th, tw = 8, 32
-        while _expand_dw_smem(g.c_in, g.stride, th, tw) > _SMEM_BUDGET:
-            if th > 1:
-                th //= 2
-            elif tw > _RUN:
-                tw //= 2
-            else:
-                raise ValueError(f"block {g}: c_in too large for the kernel")
-        octs = -(-g.c_out // _CH)
-        if octs > _THREADS:
-            raise ValueError(f"block {g}: c_out too large for the kernel")
-        p = min(_PX * (_THREADS // octs), _round_up(ho * wo, _PX))
-        while _project_smem(g.c_mid, g.c_se, g.c_out, p) > _SMEM_BUDGET:
-            if p == _PX:
-                raise ValueError(f"block {g}: c_mid too large for the kernel")
-            p = _round_up(p // 2, _PX)
-        tiles = -(-ho // th) * -(-wo // tw)
-        plan.append(dict(h=h, w=w, ho=ho, wo=wo, th=th, tw=tw, tiles=tiles, p=p))
+        tiles = _mma_block_plan(g, h, w, ho, wo) if mma else _simt_block_plan(g, ho, wo)
+        count = -(-ho // tiles["th"]) * -(-wo // tiles["tw"])
+        plan.append(dict(h=h, w=w, ho=ho, wo=wo, tiles=count, **tiles))
         h, w = ho, wo
-    return plan
+    return tuple(plan)
+
+
+def launch_plan(blocks: Sequence[BlockGeom], h: int, w: int,
+                dtype: torch.dtype = torch.bfloat16) -> List[dict]:
+    """Per block: its input and output size, the depthwise output tile
+    ``(th, tw)`` of launch (a) and the tile count. In bfloat16 (the
+    tensor-core kernels) also the expanded channels ``cg`` per block of
+    launch (a) and the chunk ``ch`` of them it takes at a time, the
+    tiles' ``halo`` factor (:func:`halo_factor`), the shared bytes of
+    launch (a) and (b) (``smem_a``, ``smem_b``) and the MMA shapes padded to
+    16 (``k_expand``, ``k_project``, ``n_project``); in float32 (the SIMT
+    kernels) the pixels ``p`` per block of launch (b)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"compute type must be float32 or bfloat16, got {dtype}")
+    return [dict(p) for p in _plan(tuple(blocks), h, w, dtype == torch.bfloat16)]
 
 
 def stage_stack_forward(img: torch.Tensor, weights: StagePrefixWeights,
@@ -249,32 +371,34 @@ def stage_stack_forward(img: torch.Tensor, weights: StagePrefixWeights,
     img = img.contiguous()
     n, _, h, w = img.shape
     blocks = weights.blocks
-    plan = launch_plan(blocks, h, w)
+    plan = launch_plan(blocks, h, w, img.dtype)
     c_stem = weights.stem_w.shape[0]
     acts = [c_stem * plan[0]["h"] * plan[0]["w"]] + [
         g.c_out * pl["ho"] * pl["wo"] for g, pl in zip(blocks[:-1], plan[:-1])
     ]
     act_elems = n * max(acts)
-    h2_elems = n * max(g.c_mid * pl["ho"] * pl["wo"] for g, pl in zip(blocks, plan))
+    h2_elems = n * max(g.c_mid * _round_up(pl["ho"] * pl["wo"], 4) for g, pl in zip(blocks, plan))
     part_elems = n * max(g.c_mid * pl["tiles"] for g, pl in zip(blocks, plan))
     dev = img.device
     act0 = torch.empty(act_elems, dtype=img.dtype, device=dev)
     act1 = torch.empty(act_elems, dtype=img.dtype, device=dev)
     h2 = torch.empty(h2_elems, dtype=torch.float32, device=dev)
     part = torch.empty(part_elems, dtype=torch.float32, device=dev)
+    gate = torch.empty(n * max(g.c_mid for g in blocks), dtype=torch.float32, device=dev)
     out = torch.empty((n, blocks[-1].c_out, plan[-1]["ho"], plan[-1]["wo"]),
                       dtype=img.dtype, device=dev)
-    geoms = (ctypes.c_int * (9 * len(blocks)))(*[
+    mma = img.dtype == torch.bfloat16
+    geoms = (ctypes.c_int * (10 * len(blocks)))(*[
         v for g, pl in zip(blocks, plan)
         for v in (g.c_in, g.c_mid, g.c_se, g.c_out, g.stride, int(g.residual),
-                  pl["th"], pl["tw"], pl["p"])
+                  pl["th"], pl["tw"], pl["ch"] if mma else pl["p"], pl["cg"] if mma else 0)
     ])
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     lib = load_library()
     status = lib.bn_stage_stack_forward(
         _DTYPE_CODES[img.dtype], int(fast_act), len(blocks), geoms, ptrs,
         img.data_ptr(), out.data_ptr(), act0.data_ptr(), act1.data_ptr(),
-        h2.data_ptr(), part.data_ptr(), n, c_stem, h, w,
+        h2.data_ptr(), part.data_ptr(), gate.data_ptr(), n, c_stem, h, w,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(status, "stage_stack_forward kernel")

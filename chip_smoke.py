@@ -11,7 +11,8 @@ exits non-zero:
 3. kernel  — each frontend kernel (B1, B2) against its plain PyTorch
              version at the main path's shapes (32 segments of 144000
              samples, flen 1024, hop 280, 96 mels or filters), in bf16 and
-             float32, and in float32 against the f64 oracle; the int8 1x1
+             float32, and in float32 against the f64 oracle, and on
+             int16-range samples with scale=1/32768 in both types; the int8 1x1
              conv + requantize kernel (B3) against its plain version at
              three shapes of the int8 v2.4 graph at batch 32 and in a case
              whose output scale has an inexact float32 reciprocal; the
@@ -32,7 +33,10 @@ exits non-zero:
              frontends, 6522 species, random weights from a seed), builds a
              Classifier on each at precision "fast", runs predict and
              predict_batch(32), checks that the frontend kernel and B4 ran,
-             and compares the logits with the same file at "fp32".
+             and compares the logits with the same file at "fp32"; prints
+             predict_batch(32)'s rate at fast, mixed (the card's per-call
+             default, whose logits must agree with fp32 as fast's do) and
+             fp32.
 5. stream  — on the same "fast" classifiers, analyze_samples over a seeded
              one-hour int16 recording at overlap 0 and 1.5 s (the second
              with a timeout, so 16-tile superchunks, two in flight), at the
@@ -60,6 +64,14 @@ phase's calls to that function.
 
 The line before the last is the kernels' summary; the last line is
 ``{"ok": true, "device": {...}}``. The script imports no JAX.
+
+    python3 chip_smoke.py --ab
+
+times only what every tree of the port with B4 shares through the same
+wrappers (B4 at the full-width geometry, B5, the B3 forward sum) and
+predict_batch(32) under mixed on the full-width files, so that this
+script beside another tree's package (``git archive`` into the
+git-ignored ``_ab/``) compares the two in one call, in turns.
 """
 
 from __future__ import annotations
@@ -334,11 +346,41 @@ def phase_kernels(dev) -> dict:
                 summary[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  **{k: line[k] for k in ("library_ms", "library", "bound_ms",
                                                          "bound_by")}}
+    phase_frontend_scale(dev, window, mel, weights)
     summary["qconv1x1_requant"] = phase_qconv(dev)
     summary["qconv1x1_requant_forward"] = phase_qconv_forward(dev)
     summary["stage_stack_forward"] = phase_stage_prefix(dev)
     summary["frame_filterbank_logpower"] = phase_frame_filterbank(dev, weights)
     return summary
+
+
+def phase_frontend_scale(dev, window, mel, weights) -> None:
+    """B1 and B2 with scale != 1: int16-range samples (as float32 and as
+    bf16) times 1/32768 in the kernel, against the plain versions scaling
+    the same way, within the bounds of the unscaled cases."""
+    rng = np.random.default_rng(SEED + 7)
+    pcm = torch.from_numpy(np.round(rng.normal(size=(4, S)) * 3000).astype(np.float32)).to(dev)
+    scale = 1.0 / 32768.0
+    cases = {
+        "stft_melspec": (
+            lambda x: fe.segments_stft_melspec(x, window, mel, hop=HOP, scale=scale),
+            lambda x: fe.stft_melspec_plain(x, window, mel, hop=HOP, scale=scale)),
+        "filterbank_logpower": (
+            lambda x: fe.segments_filterbank_logpower(x, weights, hop=HOP, scale=scale),
+            lambda x: fe.filterbank_logpower_plain(x, weights, hop=HOP, scale=scale)),
+    }
+    for name, (kernel, plain) in cases.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = pcm.to(dtype)
+            got = kernel(x)
+            torch.cuda.synchronize()
+            want = plain(x)
+            err, ok = within(got, want, dtype)
+            line = {"phase": "kernel", "name": name, "dtype": str(dtype).split(".")[1],
+                    "scale": scale, "max_abs_err_vs_plain": err, "ok": ok}
+            emit(line)
+            if not ok:
+                raise AssertionError(f"{name} ({dtype}, scale {scale}) disagrees: {line}")
 
 
 def phase_stage_prefix(dev) -> dict:
@@ -371,12 +413,14 @@ def phase_stage_prefix(dev) -> dict:
             raise AssertionError(f"stage_stack_forward: shape {tuple(got.shape)} vs {tuple(want.shape)}")
         err = float((got.float() - want.float()).abs().max())
         scaled = err / float(want.float().abs().max())
+        code_share = float((got != want).float().mean())
         dname = str(dtype).split(".")[1]
         ok = scaled <= PREFIX_TOL[dname] and bool(torch.isfinite(got).all())
         ms, plain_ms = kernel_vs_plain_ms(run, plain)
         line = {"phase": "kernel", "name": "stage_stack_forward", "dtype": dname,
                 "fast_act": fast_act, "shape": [N_SEG, 1, N_MELS, 511],
                 "max_abs_err_vs_plain": err, "scaled_err_vs_plain": scaled,
+                "share_of_outputs_differing": code_share,
                 "bound": PREFIX_TOL[dname], "ms": ms, "plain_ms": plain_ms,
                 "us_per_segment": 1e3 * ms / N_SEG,
                 "plain_us_per_segment": 1e3 * plain_ms / N_SEG, "ok": ok}
@@ -710,17 +754,27 @@ def phase_slice(card: str, segs: np.ndarray, paths: dict) -> tuple:
             raise AssertionError(f"{frontend}: predict vs predict_batch row 0: {one_vs_batch}")
         scaled = float(np.abs(logits - ref_logits).max() / np.abs(ref_logits).max())
         top1 = int((logits.argmax(1) == ref_logits.argmax(1)).sum())
-        rates = {policy: seg_per_s(c, segs) for policy, c in (("fast", clf), ("fp32", ref))}
+        mixed = (Classifier.builder().model_path(paths[frontend]).labels(LABELS)
+                 .precision("mixed").top_k(5).build())
+        mixed_logits = logits_of(mixed.predict_batch(segs))
+        mixed_scaled = float(np.abs(mixed_logits - ref_logits).max() / np.abs(ref_logits).max())
+        mixed_top1 = int((mixed_logits.argmax(1) == ref_logits.argmax(1)).sum())
+        rates = {policy: seg_per_s(c, segs)
+                 for policy, c in (("fast", clf), ("mixed", mixed), ("fp32", ref))}
         line = {"phase": "slice", "frontend": frontend, "kernel": FRONTEND_KERNEL[frontend],
                 "card": card,
                 "scaled_max_abs_logit_diff_fast_vs_fp32": scaled,
                 "top1_agree": f"{top1}/{N_SEG}",
+                "scaled_max_abs_logit_diff_mixed_vs_fp32": mixed_scaled,
+                "top1_agree_mixed": f"{mixed_top1}/{N_SEG}",
                 "predict_batch32_seg_per_s_fast": rates["fast"],
+                "predict_batch32_seg_per_s_mixed": rates["mixed"],
                 "predict_batch32_seg_per_s_fp32": rates["fp32"],
-                "ok": scaled < SCALED_LOGIT_TOL and top1 >= MIN_TOP1_AGREE}
+                "ok": (scaled < SCALED_LOGIT_TOL and top1 >= MIN_TOP1_AGREE
+                       and mixed_scaled < SCALED_LOGIT_TOL and mixed_top1 >= MIN_TOP1_AGREE)}
         emit(line)
         if not line["ok"]:
-            raise AssertionError(f"{frontend}: fast disagrees with fp32: {line}")
+            raise AssertionError(f"{frontend}: fast or mixed disagrees with fp32: {line}")
     return launches, ref_logits_of, {f: c for f, (c, _, _) in fast.items()}
 
 
@@ -850,14 +904,17 @@ def phase_stream(card: str, fast: dict) -> dict:
 
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# B4's kernels, by the names csrc/stage_prefix.cu gives them.
+B4_KERNELS = ("stem_kernel", "expand_dw", "se_gate_kernel", "se_project")
 
 
 def stream_profile(clf, pcm) -> dict:
     """torch.profiler over one analyze_samples call: its wall time, the
     device's busy time (the union of its kernel, copy and set intervals),
-    the idle share 1 - busy / wall, and the ten device items with the most
-    time (ms, launches). The profiler slows the host, so the profiled wall
-    time runs above the unprofiled one."""
+    the idle share 1 - busy / wall, B4's device time (its kernels summed)
+    and the ten device items with the most time (ms, launches). The
+    profiler slows the host, so the profiled wall time runs above the
+    unprofiled one."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -884,8 +941,11 @@ def stream_profile(clf, pcm) -> dict:
     if busy <= 0.0:
         raise AssertionError("stream profile: no device interval in the trace")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    b4 = [(total, count) for name, (total, count) in by_name.items()
+          if any(k in name for k in B4_KERNELS)]
     return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / 1e3 / wall_ms,
+            "b4_device_ms": sum(t for t, _ in b4) / 1e3, "b4_launches": sum(c for _, c in b4),
             "top_device_items_ms": [(name[:90], total / 1e3, count)
                                     for name, (total, count) in top]}
 
@@ -1042,10 +1102,27 @@ def phase_int8(card: str, segs: np.ndarray, paths: dict, tiny_paths: dict,
     return launches
 
 
+def mixed_rates(card: str) -> dict:
+    """predict_batch(32)'s segments/s under mixed (the card's per-call
+    default) on the full-width files, per frontend."""
+    rng = np.random.default_rng(SEED + 1)
+    segs = (rng.normal(size=(N_SEG, S)) * 0.1).astype(np.float32)
+    rates = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for frontend in FRONTEND_KERNEL:
+            path = str(Path(tmp) / f"birdnet_v24_{frontend}.onnx")
+            P.save_model(birdnet_v24.build_model(seed=SEED, frontend=frontend), path)
+            clf = (Classifier.builder().model_path(path).labels(LABELS)
+                   .precision("mixed").top_k(5).build())
+            rates[frontend] = seg_per_s(clf, segs)
+    return rates
+
+
 def main_ab() -> int:
-    """``--ab``: B5 at int16 step 144000 (and 72000) and the B3 forward
-    sum only, through wrappers whose signatures every tree since PR 3
-    shares, so that this script beside another tree's package times that
+    """``--ab``: B4 at the full-width geometry, B5 at int16 step 144000
+    (and 72000), the B3 forward sum and predict_batch(32) under mixed, only
+    through wrappers and entry points whose signatures every tree of the port
+    with B4 shares, so that this script beside another tree's package times that
     tree's kernels. Prints one line per phase and an "ab" line naming the
     package."""
     _, smi = phase_device()
@@ -1054,8 +1131,10 @@ def main_ab() -> int:
     weights = torch.from_numpy(
         (rng.normal(size=(N_MELS, 1, FLEN)) * np.sqrt(2.0 / FLEN)).astype(np.float32)).to(CARD)
     emit({"ab": str(Path(fe.__file__).resolve().parents[2]), "card": smi,
+          "stage_stack_forward": phase_stage_prefix(CARD),
           "frame_filterbank_logpower": phase_frame_filterbank(CARD, weights),
-          "qconv1x1_requant_forward": phase_qconv_forward(CARD)})
+          "qconv1x1_requant_forward": phase_qconv_forward(CARD),
+          "predict_batch32_seg_per_s_mixed": mixed_rates(smi)})
     return 0
 
 

@@ -80,6 +80,21 @@ def test_fast_forward_matches_jax_kernel(model_paths, audio, name, monkeypatch):
     assert np.abs(got - want).max() / np.abs(want).max() < 5e-2
 
 
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_mixed_forward_matches_jax(model_paths, audio, name):
+    """mixed: bf16 operands, float32 sums and float32 activations on both
+    sides. Scaled max |Δ| <= 2^-7, half of _fast_close's bound: each op
+    agrees to ~1e-7 (tests/test_torch_ops.py), but the float32 frontend's
+    sum-order differences (~5e-6) flip the bf16 rounding of some of the
+    next conv's operands, each flip one bf16 ulp (2^-8 relative), and those
+    carry to the logits. Prints the measured value."""
+    got, want = _forwards(model_paths[name], "mixed")(audio)
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape == (3, 10)
+    scaled = np.abs(got - want).max() / np.abs(want).max()
+    print(f"mixed forward, {name}: scaled max |d| {scaled:.3g}")
+    assert scaled <= 2 ** -7
+
+
 def _classifiers(path, **kw):
     def build(pkg):
         b = pkg.Classifier.builder().model_path(path).labels(LABELS)
@@ -176,6 +191,30 @@ def test_unported_surface_says_so(model_paths):
         mine.create_batch_context(4)
     # Streaming is ported (ROADMAP A4): one silent segment, one result.
     assert len(mine.analyze_samples(np.zeros(144000, np.float32))) == 1
+
+
+def test_streaming_timeout_scale_matches_jax(model_paths):
+    """Equal to the JAX method wherever the recording's tile count is one of
+    the JAX package's tile buckets (and past the 16-tile monitored cap);
+    elsewhere the port counts the tiles it dispatches, ceil(n / tile), where
+    JAX rounds up to the next bucket (ROADMAP C, deliberate differences)."""
+    from birdnet_tpu.compiler.stream import _bucket_tiles
+
+    mine, theirs = _classifiers(model_paths["tiny-conv"])
+    tile = mine._streaming_engine().tile
+    assert tile == theirs._streaming_engine().tile
+    for batch in (1, 7, 32, 100):
+        assert mine.streaming_timeout_scale(batch) == theirs.streaming_timeout_scale(batch)
+        for n in (None, 0, 1, tile, tile + 1, 3 * tile, 5 * tile - 3, 7 * tile,
+                  11 * tile, 16 * tile, 40 * tile + 5):
+            got = mine.streaming_timeout_scale(batch, n)
+            want = theirs.streaming_timeout_scale(batch, n)
+            tiles = -(-n // tile) if n else 0
+            if not n or tiles >= 16 or _bucket_tiles(tiles) == tiles:
+                assert got == want, (batch, n)
+            else:
+                assert got == max(1, -(-tiles * tile // batch)) <= want, (batch, n)
+    assert mine.streaming_timeout_scale(32, 5 * tile) < theirs.streaming_timeout_scale(32, 5 * tile)
 
 
 @pytest.mark.parametrize("masked", [False, True])

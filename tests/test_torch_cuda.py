@@ -106,6 +106,30 @@ def test_filterbank_logpower_kernel_matches_plain(dev, dtype, S_, hop, m, n):
         assert _close(got[:2].cpu(), torch.from_numpy(oracle), dtype)
 
 
+@pytest.mark.parametrize("scale", [1 / 32768, 1 / 3000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_frontend_kernels_scale_matches_plain(dev, dtype, scale):
+    """B1 and B2 with scale != 1 on int16-range samples: the kernel scales
+    the staged samples as the plain version scales the segments."""
+    win = (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(FLEN) / FLEN)).astype(np.float32)
+    mel = mel_weight_matrix(M, FLEN, 48_000, 150.0, 15_000.0).astype(np.float32)
+    w = torch.from_numpy((np.random.default_rng(1).normal(size=(M, 1, FLEN)) * 0.02)
+                         .astype(np.float32)).to(dev)
+    x = torch.from_numpy(np.round(np.random.default_rng(0).normal(size=(3, S)) * 3000)
+                         .astype(np.float32)).to(dev).to(dtype)
+    for kernel, plain in (
+        (lambda v, **kw: fe.segments_stft_melspec(v, win, mel, hop=HOP, **kw),
+         lambda v, **kw: fe.stft_melspec_plain(v, win, mel, hop=HOP, **kw)),
+        (lambda v, **kw: fe.segments_filterbank_logpower(v, w, hop=HOP, **kw),
+         lambda v, **kw: fe.filterbank_logpower_plain(v, w, hop=HOP, **kw)),
+    ):
+        got = kernel(x, scale=scale)
+        torch.cuda.synchronize()
+        assert _close(got, plain(x, scale=scale), dtype)
+        assert not _close(got, plain(x), dtype)
+    assert fe.LAUNCHES["stft_melspec"] == fe.LAUNCHES["filterbank_logpower"] == 1
+
+
 @pytest.mark.parametrize("stft,limit", [(True, 1209), (False, 1437)])
 def test_bf16_kernels_refuse_a_span_too_large(dev, stft, limit):
     """Where the bf16 kernels' hop limit lies at 1024 taps and 96 mels or
@@ -159,6 +183,33 @@ def test_classifier_refuses_a_hop_too_large_at_build(dev, tmp_path, frontend, ho
     with pytest.raises(ModelLoadError, match=f"hop {hop}"):
         builder().precision("fast").build()
     assert builder().precision("fp32").build().device == dev
+
+
+@pytest.mark.parametrize("op_type,x_shape,w_shape,attrs", [
+    ("Conv", (2, 1, 9000), (24, 1, 1024), dict(kernel_shape=[1024], strides=[280], pads=[0, 0])),
+    ("Conv", (2, 8, 12, 20), (16, 8, 1, 1), dict(kernel_shape=[1, 1], pads=[0, 0, 0, 0])),
+    ("Conv", (2, 16, 12, 21), (16, 1, 3, 3),
+     dict(kernel_shape=[3, 3], strides=[2, 2], pads=[1, 1, 1, 1], group=16)),
+    ("Gemm", (4, 64), (30, 64), dict(transB=1)),
+    ("MatMul", (2, 7, 33), (33, 12), {}),
+])
+def test_mixed_ops_on_the_card_match_the_cpu(dev, op_type, x_shape, w_shape, attrs):
+    """mixed on the card (cuDNN convs on bf16-rounded operands with TF32
+    off; torch.mm/bmm with out_dtype=float32 for matmuls) against the same
+    lowering on the CPU: float32 out, within 1e-4 of the largest magnitude
+    (sum order)."""
+    from birdnet_tpu_torch.compiler import ops as tops
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.normal(size=x_shape) * 0.5).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=w_shape) * 0.1).astype(np.float32))
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        ctx = tops.OpContext(op_type, attrs, precision="mixed", device=device)
+        outs.append(tops.get_lowering(op_type)(ctx, x.to(device), w.to(device))[0].cpu())
+    got, want = outs
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("frontend,counter", [
@@ -261,18 +312,25 @@ FULL_BLOCKS = [
     (32, 32, 8, 24, 1, False), (24, 24, 6, 24, 1, True), (24, 96, 24, 40, 2, False),
     (40, 160, 40, 40, 1, True), (40, 160, 40, 80, 2, False), (80, 320, 80, 80, 1, True),
 ]
+# tests/test_torch_stage_prefix.py's reduced-width schedule: channel counts
+# that are no multiple of 16 (24 expanded, 24 out), so the MMAs' K and N
+# padding carries real zeros.
+SMALL_BLOCKS = [
+    (32, 32, 8, 16, 1, False), (16, 16, 8, 16, 1, True), (16, 24, 8, 16, 2, False),
+    (16, 24, 8, 16, 1, True), (16, 24, 8, 24, 2, False), (24, 32, 8, 24, 1, True),
+]
 
 
-def _prefix_tables(dev, dtype):
+def _prefix_tables(dev, dtype, blocks=FULL_BLOCKS):
     rng = np.random.default_rng(3)
     f = lambda *shape, s=1.0: (rng.normal(size=shape) * s).astype(np.float32)
     bws = [dict(w1=f(m, i, s=1.5 / np.sqrt(i)), b1=f(m, s=0.05), wd=f(m, 1, 3, 3, s=0.3),
                 bd=f(m, s=0.05), se1=f(e, m, s=1 / np.sqrt(m)), bse1=f(e, s=0.05),
                 se2=f(m, e, s=1 / np.sqrt(e)), bse2=f(m, s=0.05), w3=f(o, m, s=1 / np.sqrt(m)),
                 b3=f(o, s=0.05))
-           for i, m, e, o, _, _ in FULL_BLOCKS]
-    return sp.prepare_weights(f(32, 1, 3, 3, s=0.4), f(32, s=0.05), bws,
-                              [sp.BlockGeom(*g) for g in FULL_BLOCKS], dtype, dev)
+           for i, m, e, o, _, _ in blocks]
+    return sp.prepare_weights(f(blocks[0][0], 1, 3, 3, s=0.4), f(blocks[0][0], s=0.05), bws,
+                              [sp.BlockGeom(*g) for g in blocks], dtype, dev)
 
 
 @pytest.mark.parametrize("dtype,fast_act", [
@@ -293,6 +351,54 @@ def test_stage_stack_forward_kernel_matches_plain(dev, dtype, fast_act):
     assert got.shape == want.shape == (4, 80, 12, 64) and got.dtype == dtype
     scaled = float((got.float() - want.float()).abs().max() / want.float().abs().max())
     assert scaled <= (1e-5 if dtype == torch.float32 else 2 ** -6)
+
+
+@pytest.mark.parametrize("fast_act", [True, False])
+@pytest.mark.parametrize("schedule", ["full", "small"])
+@pytest.mark.parametrize("n,width", [(1, 511), (3, 512), (32, 511), (32, 512)])
+def test_stage_stack_forward_bf16_kernel_shapes(dev, n, width, schedule, fast_act):
+    """B4's tensor-core kernels against the plain version at batch 1, 3 and
+    32, image widths 511 and 512, full width and the reduced schedule: the
+    bf16 bound above; prints the share of output codes that differ."""
+    blocks = FULL_BLOCKS if schedule == "full" else SMALL_BLOCKS
+    tables = _prefix_tables(dev, torch.bfloat16, blocks)
+    img = torch.from_numpy((np.random.default_rng(n).normal(size=(n, 1, 96, width)) * 0.5)
+                           .astype(np.float32)).to(dev).to(torch.bfloat16)
+    got = sp.stage_stack_forward(img, tables, fast_act)
+    torch.cuda.synchronize()
+    assert sp.LAUNCHES["stage_stack_forward"] == 1
+    want = sp.stage_stack_forward_plain(img, tables, fast_act)
+    assert got.shape == want.shape == (n, blocks[-1][3], 12, 64)
+    scaled = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    print(f"B4 bf16 n={n} W={width} {schedule} fast_act={fast_act}: scaled max |d| "
+          f"{scaled:.3g}, {float((got != want).float().mean()):.4%} of output codes differ")
+    assert bool(torch.isfinite(got).all()) and scaled <= 2 ** -6
+
+
+# Channel counts that are no multiple of 8 and an image 500 wide (250, 125,
+# 63 after the strides): 2-byte staging loads, no 16-byte h2 stores, the
+# project's per-pixel epilogue at 12 x 63, K and N padded to 16.
+ODD_BLOCKS = [
+    (32, 36, 8, 20, 1, False), (20, 44, 6, 20, 1, True), (20, 52, 8, 28, 2, False),
+    (28, 60, 10, 28, 2, False),
+]
+
+
+@pytest.mark.parametrize("fast_act", [True, False])
+def test_stage_stack_forward_bf16_kernel_odd_shapes(dev, fast_act):
+    """B4's tensor-core kernels off v2.4's widths (their fallback paths)
+    against the plain version, within the bf16 bound above."""
+    tables = _prefix_tables(dev, torch.bfloat16, ODD_BLOCKS)
+    img = torch.from_numpy((np.random.default_rng(5).normal(size=(3, 1, 96, 500)) * 0.5)
+                           .astype(np.float32)).to(dev).to(torch.bfloat16)
+    got = sp.stage_stack_forward(img, tables, fast_act)
+    torch.cuda.synchronize()
+    want = sp.stage_stack_forward_plain(img, tables, fast_act)
+    assert got.shape == want.shape == (3, 28, 12, 63)
+    scaled = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    print(f"B4 bf16 odd shapes fast_act={fast_act}: scaled max |d| {scaled:.3g}, "
+          f"{float((got != want).float().mean()):.4%} of output codes differ")
+    assert bool(torch.isfinite(got).all()) and scaled <= 2 ** -6
 
 
 @pytest.mark.parametrize("audio_dtype", [torch.int16, torch.float32])

@@ -147,6 +147,52 @@ def test_filterbank_logpower_bf16(S, hop, flen, M, N):
     assert np.abs(_as_f32(got) - _as_f32(want)).max() <= BF16_TOL
 
 
+# scale=: int16-range samples scaled in the kernel, by 2^-15 (the int16
+# dequantization, exact in every dtype) and by 1/3000 (inexact, so a bf16
+# rounding follows the float32 product, as in the JAX kernels).
+SCALES = [1 / 32768, 1 / 3000]
+
+
+def _pcm_like(S, n, seed=0):
+    return np.round(np.random.default_rng(seed).normal(size=(n, S)) * 3000).astype(np.float32)
+
+
+@pytest.mark.parametrize("scale", SCALES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stft_melspec_scale_matches_jax(dtype, scale):
+    S, hop, flen, M, N = 9000, 280, 1024, 24, 2
+    segs, win, mel = _pcm_like(S, N), _hann(flen), _banded_mel(flen, M)
+    x = torch.from_numpy(segs).to(getattr(torch, dtype))
+    got = tfe.segments_stft_melspec(x, win, mel, hop=hop, scale=scale)
+    assert got.dtype == x.dtype
+    want = jfe.segments_stft_melspec(
+        jnp.asarray(segs).astype(dtype), win, mel, hop=hop, frame_length=flen,
+        scale=scale, compute_dtype=getattr(jnp, dtype), interpret=True,
+    )
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_as_f32(got), _as_f32(want), rtol=tol, atol=tol)
+    unscaled = tfe.segments_stft_melspec(x, win, mel, hop=hop)
+    assert np.abs(_as_f32(unscaled) - _as_f32(got)).max() > 1.0
+
+
+@pytest.mark.parametrize("scale", SCALES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_filterbank_logpower_scale_matches_jax(dtype, scale):
+    S, hop, flen, M, N = 9000, 280, 1024, 24, 2
+    segs, w = _pcm_like(S, N), _weights(flen, M)
+    x = torch.from_numpy(segs).to(getattr(torch, dtype))
+    got = tfe.segments_filterbank_logpower(x, torch.from_numpy(w), hop=hop, scale=scale)
+    assert got.dtype == x.dtype
+    want = jfe.segments_filterbank_logpower(
+        jnp.asarray(segs).astype(dtype), w, hop=hop, scale=scale,
+        compute_dtype=getattr(jnp, dtype), interpret=True,
+    )
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_as_f32(got), _as_f32(want), rtol=tol, atol=tol)
+    unscaled = tfe.segments_filterbank_logpower(x, torch.from_numpy(w), hop=hop)
+    assert np.abs(_as_f32(unscaled) - _as_f32(got)).max() > 1.0
+
+
 def test_stft_bases_match_jax_construction():
     """The host-side DFT bases: the mel bank's nonzero support, f64 angles
     with the window folded in, cast to float32."""

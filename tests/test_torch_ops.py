@@ -1,6 +1,7 @@
 """Each op lowering of the PyTorch port against the JAX package's lowering
-of the same op, on the same numpy inputs: at ``fp32``, and under ``fast``
-where the policy changes the result."""
+of the same op, on the same numpy inputs: at ``fp32``, under ``mixed``
+(bf16 operands, float32 sums and outputs) and under ``fast`` where the
+policy changes the result."""
 
 import numpy as np
 import pytest
@@ -35,10 +36,18 @@ def _run(op_type, precision, inputs, **attrs):
 
 def _fast_close(got, want):
     """fast: both round operands and outputs to bf16; one bf16 ulp (2^-8
-    relative) of disagreement comes from the other summation order, and the
-    port's polyphase matmul rounds its partial sums to bf16 as well."""
+    relative) of disagreement comes from the other summation order."""
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, rtol=2 ** -6, atol=2 ** -6 * scale)
+
+
+def _mixed_close(got, want):
+    """mixed: both round the operands to bf16 and sum their (exact) products
+    in float32, so they differ only in summation order: within 1e-4 of the
+    output's largest magnitude, the fp32 parity bound. One bf16 rounding of
+    the output, which the port made before, is about 2e-3 of it."""
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
 
 
 def _rng(seed=0):
@@ -61,7 +70,7 @@ CONV_CASES = {
 }
 
 
-@pytest.mark.parametrize("precision", ["fp32", "fast"])
+@pytest.mark.parametrize("precision", ["fp32", "mixed", "fast"])
 @pytest.mark.parametrize("case", sorted(CONV_CASES))
 def test_conv(case, precision):
     xs, ws, attrs = CONV_CASES[case]
@@ -73,9 +82,28 @@ def test_conv(case, precision):
     assert got.shape == want.shape
     if precision == "fp32":
         np.testing.assert_allclose(got, want, rtol=FP32_TOL, atol=FP32_TOL)
+    elif precision == "mixed":
+        assert str(raw.dtype) == "float32"
+        _mixed_close(got, want)
     else:
         assert str(raw.dtype) == "bfloat16"
         _fast_close(got, want)
+
+
+def test_polyphase_fast_keeps_float32_partial_products():
+    """fast: the polyphase Conv1d's partial products stay float32 through
+    the shifted adds and the output is rounded to bf16 once, as the JAX
+    lowering's ``preferred_element_type`` keeps them: every output within
+    one bf16 ulp (2^-7 relative) of JAX's, where sums in another order can
+    flip a rounding. Partial products rounded to bf16 miss that wherever the
+    four partials cancel."""
+    rng = _rng(10)
+    x = (rng.normal(size=(2, 1, 24000)) * 0.5).astype(np.float32)
+    w = (rng.normal(size=(32, 1, 1024)) * 0.1).astype(np.float32)
+    got, want, raw = _run("Conv", "fast", [x, w], kernel_shape=[1024], strides=[280],
+                          pads=[0, 0])
+    assert str(raw.dtype) == "bfloat16" and got.shape == want.shape == (2, 32, 83)
+    np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=0)
 
 
 def test_conv_mixed_returns_float32():
@@ -88,7 +116,7 @@ def test_conv_mixed_returns_float32():
     assert y.dtype == torch.float32
 
 
-@pytest.mark.parametrize("precision", ["fp32", "fast"])
+@pytest.mark.parametrize("precision", ["fp32", "mixed", "fast"])
 def test_gemm(precision):
     rng = _rng(1)
     a = rng.normal(size=(4, 64)).astype(np.float32)
@@ -97,11 +125,13 @@ def test_gemm(precision):
     got, want, _ = _run("Gemm", precision, [a, w, c], transB=1)
     if precision == "fp32":
         np.testing.assert_allclose(got, want, rtol=FP32_TOL, atol=FP32_TOL)
+    elif precision == "mixed":
+        _mixed_close(got, want)
     else:
         _fast_close(got, want)
 
 
-@pytest.mark.parametrize("precision", ["fp32", "fast"])
+@pytest.mark.parametrize("precision", ["fp32", "mixed", "fast"])
 def test_matmul(precision):
     rng = _rng(2)
     a = rng.normal(size=(2, 7, 33)).astype(np.float32)
@@ -109,6 +139,8 @@ def test_matmul(precision):
     got, want, _ = _run("MatMul", precision, [a, b])
     if precision == "fp32":
         np.testing.assert_allclose(got, want, rtol=FP32_TOL, atol=FP32_TOL)
+    elif precision == "mixed":
+        _mixed_close(got, want)
     else:
         _fast_close(got, want)
 

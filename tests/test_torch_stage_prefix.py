@@ -108,13 +108,48 @@ def test_plain_matches_jax_kernel_bf16_fast_act():
     assert np.abs(got - want).max() / np.abs(want).max() <= 1e-2
 
 
-def test_launch_plan_fits_shared_memory():
-    """The full-width six-block plan at 96 x 511: every launch within the
-    shared-memory budget, tiles covering each output in whole depthwise
-    runs, one register tile per thread of launch (b), sizes halving at the
-    stride-2 blocks."""
+@pytest.mark.parametrize("width", [511, 512])
+@pytest.mark.parametrize("schedule", ["full", "small"])
+def test_launch_plan_fits_shared_memory(schedule, width):
+    """The bfloat16 tensor-core plan at 96 x W, at full width and at the
+    reduced SMALL_BLOCKS widths: every launch within the shared-memory
+    budget; the MMA shapes zero-padded to 16 (the expand's K = c_in, the
+    project's K = c_mid and N = c_out); the expand's recompute over the
+    halo at most 1.2 times the image; tiles covering each output in whole
+    depthwise runs; sizes halving at the stride-2 blocks."""
+    geoms = FULL_BLOCKS if schedule == "full" else SMALL_BLOCKS
+    blocks = [sp.BlockGeom(*g) for g in geoms]
+    plan = sp.launch_plan(blocks, 96, width)
+    assert [(p["ho"], p["wo"]) for p in plan] == [(48, 256)] * 2 + [(24, 128)] * 2 + [(12, 64)] * 2
+    for g, p in zip(blocks, plan):
+        assert p["smem_a"] == sp._mma_expand_smem(g.c_in, g.stride, p["th"], p["tw"], p["ch"],
+                                                   p["cg"])
+        assert p["smem_a"] <= sp._SMEM_BUDGET
+        assert p["smem_b"] == sp._mma_project_smem(g.c_mid, g.c_out) <= sp._SMEM_BUDGET
+        assert p["halo"] == sp.halo_factor(p["h"], p["w"], g.stride, p["th"], p["tw"])
+        assert 1.0 <= p["halo"] <= 1.2
+        assert p["ch"] in sp._MMA_CHUNKS and p["cg"] in sp._MMA_GROUPS and p["cg"] % p["ch"] == 0
+        assert p["tw"] % sp._RUN == 0
+        assert p["tiles"] * p["th"] * p["tw"] >= p["ho"] * p["wo"]
+        for key, c in (("k_expand", g.c_in), ("k_project", g.c_mid), ("n_project", g.c_out)):
+            assert p[key] % 16 == 0 and c <= p[key] < c + 16
+    if schedule == "full":
+        assert [p["k_expand"] for p in plan] == [32, 32, 32, 48, 48, 80]
+        assert [p["k_project"] for p in plan] == [32, 32, 96, 160, 160, 320]
+        assert [p["n_project"] for p in plan] == [32, 32, 48, 48, 80, 80]
+    # The factor itself: one tile over the image covers it once; 4 x 4
+    # tiles of an 8 x 8 image at stride 1 each cover 5 x 5 of it.
+    assert sp.halo_factor(48, 256, 1, 48, 256) == 1.0
+    assert sp.halo_factor(8, 8, 1, 4, 4) == (10 / 8) ** 2
+    assert sp.halo_factor(48, 256, 2, 24, 128) == 1.0
+
+
+def test_simt_launch_plan_fits_shared_memory():
+    """The float32 SIMT plan at 96 x 511 (the kernels the f32 variant
+    keeps): every launch within the budget, tiles in whole depthwise runs,
+    one register tile per thread of launch (b)."""
     blocks = [sp.BlockGeom(*g) for g in FULL_BLOCKS]
-    plan = sp.launch_plan(blocks, 96, 511)
+    plan = sp.launch_plan(blocks, 96, 511, torch.float32)
     assert [(p["ho"], p["wo"]) for p in plan] == [(48, 256)] * 2 + [(24, 128)] * 2 + [(12, 64)] * 2
     for g, p in zip(blocks, plan):
         assert sp._expand_dw_smem(g.c_in, g.stride, p["th"], p["tw"]) <= sp._SMEM_BUDGET
