@@ -1,23 +1,45 @@
-"""ONNX op → PyTorch lowering registry (the main-path op set).
+"""ONNX op → PyTorch lowering registry.
 
-The counterpart of :mod:`birdnet_tpu.compiler.ops` for the ops a BirdNET
-v2.4 graph holds after import: the fused frontend, MBConv and stage-prefix
-nodes (the stage prefix runs the B4 kernel under ``fast``/``bf16``), ``Conv`` in its four shapes, ``BatchNormalization``, ``Add``,
-``Mul``, ``Log``, ``Relu``, ``Sigmoid``, ``GlobalAveragePool``,
-``Flatten``, ``Squeeze``, ``Unsqueeze``, ``Transpose``, ``Gemm``,
-``MatMul``, ``ReduceSumSquare``, ``ReduceMean``, ``MelWeightMatrix`` and
-``STFT`` (with ``Relu``, ``Squeeze`` and ``ReduceMean``, Perch v2 and the
-range filter's meta model run too); and the int8 set that post-training
-quantization (compiler/quantize.py) produces: ``QuantizeLinear``,
-``DequantizeLinear``, ``QLinearConv`` (symmetric int8 1x1 convs run the B3
-kernel), ``QLinearMatMul``, ``_QLinearGemm``, ``ConvInteger``,
-``MatMulInteger`` and ``DynamicQuantizeLinear``. Every other op is a later
-port.
+The counterpart of :mod:`birdnet_tpu.compiler.ops`, in the same section
+order, so that each lowering stands where its JAX counterpart does:
+
+- the ai.onnx core of the JAX file: trivial and elementwise ops, MatMul,
+  Gemm, Einsum, Conv, ConvTranspose, the normalizations, pooling, shape
+  manipulation, reductions, ``Celu``/``ThresholdedRelu``/``Shrink``/
+  ``Trilu``/``EyeLike``, the signal ops (windows, ``MelWeightMatrix``,
+  ``STFT``, ``DFT``) and the bitwise/sequence/norm extensions, with
+  ``Scatter`` (the deprecated alias of ``ScatterElements``);
+- the int8 set that post-training quantization (compiler/quantize.py)
+  produces: ``QuantizeLinear``, ``DequantizeLinear``, ``QLinearConv``
+  (symmetric int8 1x1 convs run the B3 kernel), ``QLinearMatMul``,
+  ``_QLinearGemm``, ``ConvInteger``, ``MatMulInteger`` and
+  ``DynamicQuantizeLinear``;
+- the fused nodes of the import-time passes (the frontends run B1/B2 and
+  the stage prefix runs B4 under ``fast``/``bf16``).
+
+Control flow (If/Loop/Scan), the RNNs, Resize/Upsample, Attention/
+RotaryEmbedding, the JAX package's ``ops_extended.py``/``ops_contrib.py``/
+``ops_ml.py`` and the opset <= 6 importer shims are later ports: a graph
+that uses one fails at import, naming it.
 
 Values in the interpreter's environment are torch tensors (activations and
 float params) or numpy arrays (small constants, shapes, axes). A lowering
-that receives only numpy values may answer in numpy; one that meets a
-tensor moves its numpy operands to that tensor's device.
+whose inputs are all numpy answers in numpy (``op(..., fold=True)`` runs it
+on the host and hands back numpy arrays): the counterpart of the JAX
+interpreter's trace-time constant fold, so that an exporter's shape chains
+(``Shape → Gather → Unsqueeze → Concat → Reshape``) never touch the card.
+A lowering that meets a tensor moves its numpy operands to that tensor's
+device once per value (``_tensor``), never per call. No lowering reads a
+device tensor back to the host: values the JAX package needs at compile
+time (shapes, axes, pads, ``k``, ``depth``, Range's bounds) must be host
+values, and a device tensor there raises "must be a compile-time
+constant", as a tracer does in JAX.
+
+Dtypes follow the JAX lowering's jax.numpy promotion (``_promoted``), with
+two deliberate differences: ONNX int64 and float64 stay 64-bit (the JAX
+package runs with x64 off and computes them as int32/float32), and
+uint16/uint32/uint64, which torch computes only in part, raise
+``NotImplementedError`` naming the dtype where torch has no kernel.
 
 Precision policies, as in the JAX package:
 
@@ -35,12 +57,15 @@ Precision policies, as in the JAX package:
 
 The polyphase Conv1d keeps its partial products in float32 under ``mixed``
 and ``fast`` and rounds once, after the shifted adds (the JAX lowering's
-``preferred_element_type``).
+``preferred_element_type``). Einsum and ConvTranspose follow the policies
+as MatMul and Conv do.
 """
 
 from __future__ import annotations
 
 import functools
+import math
+import operator
 import os
 import threading
 from collections import OrderedDict
@@ -57,11 +82,16 @@ from ..ops.cuda.qconv import qconv1x1_requant
 _REGISTRY: Dict[str, Callable] = {}
 
 
-def op(*names):
+def op(*names, fold: bool = False):
+    """Register a lowering under ``names``. ``fold``: the lowering answers
+    in numpy when every input is a host value (see ``_folding``)."""
+
     def deco(fn):
+        impl = _folding(fn) if fold else functools.wraps(fn)(
+            lambda ctx, *args: _checked(fn, ctx, args))
         for n in names:
-            _REGISTRY[n] = fn
-        return fn
+            _REGISTRY[n] = impl
+        return impl
 
     return deco
 
@@ -75,6 +105,10 @@ def get_lowering(op_type: str, domain: str = "") -> Callable:
             f"compiler yet"
         )
     return fn
+
+
+def supported_ops() -> List[str]:
+    return sorted(_REGISTRY)
 
 
 class OpContext:
@@ -101,43 +135,106 @@ class OpContext:
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
 
+    def on(self, device) -> "OpContext":
+        """A copy of this context for ``device``."""
+        return OpContext(self.op_type, self.attrs, self.opset, self.precision,
+                         self.node_name, self.num_outputs, self.env,
+                         self.out_names, torch.device(device))
+
 
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
 
 
-def _ints(x, what: str) -> List[int]:
+def _is_host(x) -> bool:
+    """True for a host value (numpy or Python), the port's counterpart of
+    the JAX package's compile-time static values."""
+    return not isinstance(x, torch.Tensor)
+
+
+def _static_array(x, what: str) -> np.ndarray:
+    """A value the JAX lowering needs at compile time, as numpy. A tensor
+    on the card (data the forward computes) raises, as a tracer does in the
+    JAX lowering: reading it back would sync every call and break a CUDA
+    graph's capture. A CPU tensor is read."""
     if isinstance(x, torch.Tensor):
-        x = x.cpu().numpy()
-    try:
-        return [int(v) for v in np.asarray(x).reshape(-1)]
-    except (TypeError, ValueError) as e:
-        raise ValueError(f"{what} must be an integer constant") from e
+        if x.device.type != "cpu":
+            raise ValueError(f"{what} must be a compile-time constant")
+        return x.numpy()
+    return np.asarray(x)
+
+
+def _static_ints(x, what: str) -> List[int]:
+    return [int(v) for v in _static_array(x, what).reshape(-1)]
+
+
+def _static_int(x, what: str) -> int:
+    return _static_ints(x, what)[0]
+
+
+def _attr_str(ctx, name, default):
+    v = ctx.attr(name, default)
+    return v.decode() if isinstance(v, bytes) else v
+
+
+# Host arrays up to this size reach a device once per value and are shared
+# (``_on_device``); larger ones are copied per use.
+_SHARED_UPLOAD_MAX = 16 << 20
+
+
+@functools.lru_cache(maxsize=4096)
+def _device_array(raw: bytes, dtype: str, shape, device) -> torch.Tensor:
+    arr = np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def _on_device(x, device) -> torch.Tensor:
+    """``x`` as a tensor on ``device``. Host arrays are uploaded once per
+    value and shared: callers never write to the result."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    arr = np.ascontiguousarray(x)
+    if arr.nbytes > _SHARED_UPLOAD_MAX:
+        return torch.from_numpy(arr.copy()).to(device)
+    return _device_array(arr.tobytes(), arr.dtype.str, arr.shape,
+                         torch.device(device))
 
 
 def _tensor(ctx: OpContext, x, device=None) -> torch.Tensor:
-    """``x`` as a tensor on ``device`` (default: the forward's device)."""
+    """``x`` as a tensor on ``device`` (default: the forward's device). A
+    host value reaches a CUDA device once per value (``_on_device``), so a
+    forward uploads nothing per call after its first and a CUDA graph can
+    capture it."""
     if isinstance(x, torch.Tensor):
         return x
+    device = torch.device(device if device is not None else ctx.device)
+    if device.type != "cpu":
+        return _on_device(x, device)
     arr = np.asarray(x)
     if not arr.flags.writeable or not arr.flags.c_contiguous:
         arr = np.array(arr)
-    return torch.from_numpy(arr).to(device if device is not None else ctx.device)
+    return torch.from_numpy(arr)
+
+
+def _device_of(ctx: OpContext, *xs) -> torch.device:
+    return next((x.device for x in xs if isinstance(x, torch.Tensor)), ctx.device)
 
 
 def _promoted(ctx: OpContext, *xs) -> List[torch.Tensor]:
     """Tensors of one common dtype, promoted as jax.numpy promotes arrays
     (a 0-d float32 constant lifts a bf16 tensor to float32, where torch's
     own rule would keep bf16)."""
-    device = next(
-        (x.device for x in xs if isinstance(x, torch.Tensor)), ctx.device
-    )
+    device = _device_of(ctx, *xs)
     ts = [_tensor(ctx, x, device) for x in xs]
     dtype = ts[0].dtype
     for t in ts[1:]:
         dtype = torch.promote_types(dtype, t.dtype)
     return [t if t.dtype == dtype else t.to(dtype) for t in ts]
+
+
+def _torch_dtype(np_dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, np_dtype)).dtype
 
 
 _ONNX_TO_NP = {
@@ -148,8 +245,78 @@ _ONNX_TO_NP = {
     _DT.INT64: np.int64,
 }
 
+# birdnet_tpu/compiler/ops.py:156-174, with 64-bit types kept 64-bit.
+_ONNX_TO_TORCH = {
+    _DT.FLOAT: torch.float32,
+    _DT.UINT8: torch.uint8,
+    _DT.INT8: torch.int8,
+    _DT.UINT16: torch.uint16,
+    _DT.INT16: torch.int16,
+    _DT.INT32: torch.int32,
+    _DT.INT64: torch.int64,
+    _DT.BOOL: torch.bool,
+    _DT.FLOAT16: torch.float16,
+    _DT.DOUBLE: torch.float64,
+    _DT.UINT32: torch.uint32,
+    _DT.UINT64: torch.uint64,
+    _DT.BFLOAT16: torch.bfloat16,
+    _DT.FLOAT8E4M3FN: torch.float8_e4m3fn,
+    _DT.FLOAT8E4M3FNUZ: torch.float8_e4m3fnuz,
+    _DT.FLOAT8E5M2: torch.float8_e5m2,
+    _DT.FLOAT8E5M2FNUZ: torch.float8_e5m2fnuz,
+}
 
-# Precision policies (birdnet_tpu/compiler/ops.py:177-205).
+_WIDE_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
+
+
+def _wide_unsigned(args) -> List[str]:
+    found = set()
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if a.dtype in _WIDE_UNSIGNED:
+                found.add(str(a.dtype).replace("torch.", ""))
+        elif isinstance(a, np.ndarray) and a.dtype in (np.uint16, np.uint32, np.uint64):
+            found.add(str(a.dtype))
+    return sorted(found)
+
+
+def _checked(fn, ctx, args):
+    """``fn(ctx, *args)``, with torch's missing kernels for the wide
+    unsigned types reported as such (torch computes uint16/32/64 only in
+    part; the port computes them in no other dtype)."""
+    try:
+        return fn(ctx, *args)
+    except NotImplementedError as e:
+        wide = _wide_unsigned(args)
+        if wide:
+            raise NotImplementedError(
+                f"ONNX {ctx.op_type} on {', '.join(wide)}: torch has no kernel "
+                f"for it ({e})"
+            ) from e
+        raise
+
+
+def _folding(fn):
+    """The lowering ``fn``, answering in numpy when every input is a host
+    value: it runs on the host and its tensors come back as numpy arrays
+    (what the JAX interpreter's trace-time fold gives). A result that numpy
+    cannot hold (bf16, float8) is computed on the forward's device
+    instead."""
+
+    @functools.wraps(fn)
+    def impl(ctx, *args):
+        if all(_is_host(a) for a in args):
+            outs = _checked(fn, ctx.on("cpu"), args)
+            try:
+                return [o.numpy() if isinstance(o, torch.Tensor) else o for o in outs]
+            except TypeError:
+                pass
+        return _checked(fn, ctx, args)
+
+    return impl
+
+
+# Precision policies (birdnet_tpu/compiler/ops.py:177-206).
 _BF16_OPERAND_POLICIES = ("mixed", "fast", "bf16")
 
 
@@ -168,6 +335,15 @@ def _bf16_in_f32(*xs):
     return tuple(
         x.to(torch.bfloat16).float() if x.is_floating_point() else x for x in xs
     )
+
+
+def _policy_operands(ctx: OpContext, *xs):
+    """Conv-like operands under the policy: ``mixed`` holds bf16-rounded
+    values in float32 (float32 sums, TF32 off), the others as
+    ``_mxu_operands``."""
+    if ctx.precision == "mixed" and all(x.is_floating_point() for x in xs):
+        return _bf16_in_f32(*xs)
+    return _mxu_operands(ctx, *xs)
 
 
 def _f32_sum_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -203,9 +379,135 @@ def _out_cast(ctx: OpContext, y: torch.Tensor, orig_dtype) -> torch.Tensor:
     return y
 
 
+def _jnp_mean(x: torch.Tensor, dims, keepdim: bool = True) -> torch.Tensor:
+    """jnp.mean: bf16/float16 summed in float32 and rounded back once,
+    integers and bool to float32, float32/float64 kept."""
+    if not x.is_floating_point():
+        return x.float().mean(dim=dims, keepdim=keepdim)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    return x.to(acc).mean(dim=dims, keepdim=keepdim).to(x.dtype)
+
+
+def _jnp_var(x: torch.Tensor, dims, keepdim: bool = True) -> torch.Tensor:
+    """jnp.var (population variance), promoted as _jnp_mean."""
+    if not x.is_floating_point():
+        return x.float().var(dim=dims, unbiased=False, keepdim=keepdim)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    return x.to(acc).var(dim=dims, unbiased=False, keepdim=keepdim).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
-# elementwise
+# trivial / elementwise
 # ---------------------------------------------------------------------------
+
+
+@op("Identity")
+def _identity(ctx, x):
+    return [x]
+
+
+@op("Dropout", fold=True)
+def _dropout(ctx, x, ratio=None, training_mode=None):
+    # Inference only: Dropout is identity; the optional mask is all True.
+    outs = [x]
+    if ctx.num_outputs > 1:
+        outs.append(torch.ones(tuple(x.shape), dtype=torch.bool, device=_device_of(ctx, x)))
+    return outs
+
+
+_FLOAT8_DTYPES = (
+    torch.float8_e4m3fn, torch.float8_e4m3fnuz,
+    torch.float8_e5m2, torch.float8_e5m2fnuz,
+)
+
+
+@op("Cast", fold=True)
+def _cast(ctx, x):
+    to = ctx.attr("to")
+    if isinstance(to, (bytes, str)):
+        # Opsets 1-5 spell the target as a STRING enum name ("FLOAT").
+        name = to.decode() if isinstance(to, bytes) else to
+        to = getattr(_DT, name.upper(), None)
+        if to is None:
+            raise ValueError(f"Cast: unknown legacy dtype name {name!r}")
+    to = int(to)
+    if to in (_DT.INT4, _DT.UINT4):
+        raise NotImplementedError(
+            "Cast to a 4-bit type: torch has no int4/uint4 dtype (the JAX "
+            "lowering saturates into jnp.int4/uint4)"
+        )
+    target = _ONNX_TO_TORCH[to]
+    x = _tensor(ctx, x)
+    if target in _FLOAT8_DTYPES and int(ctx.attr("saturate", 1)):
+        # Cast's opset-19 default saturate=1: clamp to the format's finite
+        # range (a plain cast overflows to nan for e4m3fn, inf for e5m2).
+        info = torch.finfo(target)
+        x = x.float().clamp(float(info.min), float(info.max))
+    return [x.to(target)]
+
+
+@op("CastLike", fold=True)
+def _cast_like(ctx, x, like):
+    dtype = like.dtype if isinstance(like, torch.Tensor) else _torch_dtype(np.asarray(like).dtype)
+    return [_tensor(ctx, x).to(dtype)]
+
+
+@op("Constant")
+def _constant(ctx):
+    for key in (
+        "value", "sparse_value", "value_float", "value_int",
+        "value_floats", "value_ints", "value_string", "value_strings",
+    ):
+        v = ctx.attr(key)
+        if v is not None:
+            if key == "value":
+                return [v.to_numpy()]
+            if key == "sparse_value":
+                return [v.to_dense()]
+            if key == "value_float":
+                return [np.float32(v)]
+            if key == "value_int":
+                return [np.int64(v)]
+            if key == "value_floats":
+                return [np.asarray(v, dtype=np.float32)]
+            if key == "value_string":
+                return [np.asarray(v, dtype=object).reshape(())]
+            if key == "value_strings":
+                return [np.asarray(list(v), dtype=object)]
+            return [np.asarray(v, dtype=np.int64)]
+    raise ValueError("Constant node without a value attribute")
+
+
+@op("ConstantOfShape")
+def _constant_of_shape(ctx, shape):
+    dims = _static_ints(shape, "ConstantOfShape shape")
+    v = ctx.attr("value")
+    if v is None:
+        return [np.zeros(dims, dtype=np.float32)]
+    fill = v.to_numpy()
+    return [np.full(dims, fill.reshape(-1)[0], dtype=fill.dtype)]
+
+
+def _legacy_broadcast_b(ctx, a, b):
+    """Opsets 1-6 binary-op broadcast (birdnet_tpu/compiler/ops.py:306-329):
+    with ``broadcast=1`` B aligns to A starting at ``axis``; trailing
+    singleton axes on B make numpy broadcasting reproduce that."""
+    if ctx.opset > 6 or not int(ctx.attr("broadcast", 0) or 0):
+        return b
+    a_nd, b_nd = len(a.shape), len(b.shape)
+    if b_nd == 0 or a_nd <= b_nd:
+        return b
+    axis = ctx.attr("axis")
+    axis = a_nd - b_nd if axis is None else int(axis)
+    if axis < 0:
+        axis += a_nd
+    trailing = a_nd - axis - b_nd
+    if trailing < 0:
+        raise ValueError(
+            f"legacy broadcast axis {axis} leaves no room for a rank-"
+            f"{b_nd} operand against rank {a_nd}"
+        )
+    return b.reshape(tuple(b.shape) + (1,) * trailing)
 
 
 def _host_scalar(x):
@@ -216,18 +518,20 @@ def _host_scalar(x):
     return arr if arr.ndim == 0 else None
 
 
-def _binary(np_fn, torch_fn):
+def _binary(torch_fn, scalar: bool = True):
+    """Elementwise binary op (registered with ``fold=True``: two host
+    operands answer in numpy). A host scalar beside a tensor rides along as
+    a Python number when ``scalar`` (no device copy; a divisor never does,
+    since torch multiplies by a scalar divisor's reciprocal); the result
+    dtype follows jax.numpy's promotion of the two arrays."""
+
     def impl(ctx, a, b):
-        if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
-            return [np_fn(np.asarray(a), np.asarray(b))]
+        b = _legacy_broadcast_b(ctx, a, b)
         sa, sb = _host_scalar(a), _host_scalar(b)
-        if sa is not None or sb is not None:
-            # A host scalar (an epsilon, a threshold) rides along as a
-            # Python number: no copy to the device per call. The result
-            # dtype follows jax.numpy's promotion of the two arrays.
+        if scalar and (sa is None) != (sb is None):
             t, s = (b, sa) if sa is not None else (a, sb)
-            s_dtype = torch.from_numpy(np.empty(0, s.dtype)).dtype
-            dtype = torch.promote_types(t.dtype, s_dtype)
+            t = _tensor(ctx, t)
+            dtype = torch.promote_types(t.dtype, _torch_dtype(s.dtype))
             t = t.to(dtype)
             return [torch_fn(s.item(), t) if sa is not None else torch_fn(t, s.item())]
         return [torch_fn(*_promoted(ctx, a, b))]
@@ -235,8 +539,90 @@ def _binary(np_fn, torch_fn):
     return impl
 
 
-op("Add")(_binary(np.add, torch.add))
-op("Mul")(_binary(np.multiply, torch.mul))
+def _div(a, b):
+    # ONNX Div on integers truncates toward zero (lax.div); floats divide.
+    if not a.is_floating_point() and not a.is_complex() and a.dtype != torch.bool:
+        return torch.div(a, b, rounding_mode="trunc")
+    return torch.div(a, b)
+
+
+op("Add", fold=True)(_binary(operator.add))
+op("Sub", fold=True)(_binary(operator.sub))
+op("Mul", fold=True)(_binary(operator.mul))
+op("Div", fold=True)(_binary(_div, scalar=False))
+op("Equal", fold=True)(_binary(operator.eq))
+op("Greater", fold=True)(_binary(operator.gt))
+op("Less", fold=True)(_binary(operator.lt))
+op("GreaterOrEqual", fold=True)(_binary(operator.ge))
+op("LessOrEqual", fold=True)(_binary(operator.le))
+op("And", fold=True)(_binary(torch.logical_and, scalar=False))
+op("Or", fold=True)(_binary(torch.logical_or, scalar=False))
+op("Xor", fold=True)(_binary(torch.logical_xor, scalar=False))
+op("BitwiseAnd", fold=True)(_binary(operator.and_))
+op("BitwiseOr", fold=True)(_binary(operator.or_))
+
+
+@op("Pow", fold=True)
+def _pow(ctx, a, b):
+    """``jnp.power(a, b.astype(a.dtype))``: the result has the base's dtype
+    (a float32 exponent does not lift a bf16 base)."""
+    a = _tensor(ctx, a, _device_of(ctx, a, b))
+    b = _legacy_broadcast_b(ctx, a, b)
+    sb = _host_scalar(b)
+    if sb is not None and a.is_floating_point():
+        # The exponent rounded to the base's dtype, as astype rounds it.
+        e = torch.tensor(sb.item(), dtype=torch.float64).to(a.dtype).item()
+        return [torch.pow(a, e)]
+    return [torch.pow(a, _tensor(ctx, b, a.device).to(a.dtype))]
+
+
+@op("Mod", fold=True)
+def _mod(ctx, a, b):
+    # fmod=1: C fmod (the result takes the dividend's sign), which ONNX
+    # mandates for floats; fmod=0: Python mod (the divisor's sign).
+    a, b = _promoted(ctx, a, b)
+    if int(ctx.attr("fmod", 0)):
+        return [torch.fmod(a, b)]
+    return [torch.remainder(a, b)]
+
+
+@op("Min", fold=True)
+def _min(ctx, *xs):
+    ts = _promoted(ctx, *xs)
+    r = ts[0]
+    for x in ts[1:]:
+        r = torch.minimum(r, x)
+    return [r]
+
+
+@op("Max", fold=True)
+def _max(ctx, *xs):
+    ts = _promoted(ctx, *xs)
+    r = ts[0]
+    for x in ts[1:]:
+        r = torch.maximum(r, x)
+    return [r]
+
+
+@op("Sum", fold=True)
+def _sum_op(ctx, *xs):
+    ts = _promoted(ctx, *xs)
+    r = ts[0]
+    for x in ts[1:]:
+        r = r + x
+    return [r]
+
+
+@op("Mean", fold=True)
+def _mean_op(ctx, *xs):
+    ts = _promoted(ctx, *xs)
+    r = ts[0]
+    for x in ts[1:]:
+        r = r + x
+    # A 0-d float32 divisor on the device: true division (a Python divisor
+    # would multiply by its reciprocal), the dtype of r kept (or float32
+    # for integers), as jax.numpy's weakly typed float gives it.
+    return [r / _tensor(ctx, np.float32(len(xs)), r.device)]
 
 
 def _unary(fn):
@@ -246,13 +632,145 @@ def _unary(fn):
     return impl
 
 
+op("Sqrt", fold=True)(_unary(torch.sqrt))
+op("Exp", fold=True)(_unary(torch.exp))
 op("Log")(_unary(torch.log))
+op("Abs", fold=True)(_unary(torch.abs))
+op("Neg", fold=True)(_unary(torch.neg))
+op("Floor", fold=True)(_unary(torch.floor))
+op("Ceil", fold=True)(_unary(torch.ceil))
+op("Round", fold=True)(_unary(torch.round))  # half to even, as jnp.round
+op("Sign", fold=True)(_unary(torch.sign))
+op("Not", fold=True)(_unary(torch.logical_not))
+op("Reciprocal", fold=True)(_unary(lambda x: 1.0 / x))
+op("Sin", fold=True)(_unary(torch.sin))
+op("Cos", fold=True)(_unary(torch.cos))
+op("Tan", fold=True)(_unary(torch.tan))
+op("Asin", fold=True)(_unary(torch.asin))
+op("Acos", fold=True)(_unary(torch.acos))
+op("Atan", fold=True)(_unary(torch.atan))
+op("Sinh", fold=True)(_unary(torch.sinh))
+op("Cosh", fold=True)(_unary(torch.cosh))
+op("Tanh", fold=True)(_unary(torch.tanh))
+op("Erf", fold=True)(_unary(torch.erf))
 op("Relu")(_unary(torch.relu))
 op("Sigmoid")(_unary(torch.sigmoid))
+# jax.nn.softplus is logaddexp(x, 0); torch's softplus returns x above 20.
+op("Softplus", fold=True)(_unary(lambda x: torch.logaddexp(x, torch.zeros_like(x))))
+op("Softsign", fold=True)(_unary(lambda x: x / (torch.abs(x) + 1)))
+op("Mish", fold=True)(_unary(lambda x: x * torch.tanh(torch.logaddexp(x, torch.zeros_like(x)))))
+op("HardSwish", fold=True)(_unary(F.hardswish))
+op("IsNaN", fold=True)(_unary(torch.isnan))
+
+
+@op("IsInf", fold=True)
+def _isinf(ctx, x):
+    """IsInf with the spec's detect_negative/detect_positive halves."""
+    x = _tensor(ctx, x)
+    out = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    if int(ctx.attr("detect_positive", 1)):
+        out = out | (x == math.inf)
+    if int(ctx.attr("detect_negative", 1)):
+        out = out | (x == -math.inf)
+    return [out]
+
+
+@op("LeakyRelu", fold=True)
+def _leaky_relu(ctx, x):
+    alpha = float(ctx.attr("alpha", 0.01))
+    x = _tensor(ctx, x)
+    return [torch.where(x >= 0, x, alpha * x)]
+
+
+@op("PRelu", fold=True)
+def _prelu(ctx, x, slope):
+    x = _tensor(ctx, x, _device_of(ctx, x, slope))
+    slope = _tensor(ctx, slope, x.device)
+    if (ctx.opset <= 6 and slope.ndim == 1 and x.ndim > 2
+            and slope.shape[0] == x.shape[1]):
+        # Legacy dialect: a 1-D slope is per channel (NCHW axis 1).
+        slope = slope.reshape((1, -1) + (1,) * (x.ndim - 2))
+    xs, slope = _promoted(ctx, x, slope)
+    return [torch.where(x >= 0, xs, slope * xs)]
+
+
+@op("Elu", fold=True)
+def _elu(ctx, x):
+    alpha = float(ctx.attr("alpha", 1.0))
+    x = _tensor(ctx, x)
+    return [torch.where(x > 0, x, alpha * torch.expm1(x))]
+
+
+@op("Selu", fold=True)
+def _selu(ctx, x):
+    alpha = float(ctx.attr("alpha", 1.6732632423543772))
+    gamma = float(ctx.attr("gamma", 1.0507009873554805))
+    x = _tensor(ctx, x)
+    return [gamma * torch.where(x > 0, x, alpha * torch.expm1(x))]
+
+
+@op("HardSigmoid", fold=True)
+def _hard_sigmoid(ctx, x):
+    alpha = float(ctx.attr("alpha", 0.2))
+    beta = float(ctx.attr("beta", 0.5))
+    return [torch.clamp(alpha * _tensor(ctx, x) + beta, 0.0, 1.0)]
+
+
+@op("Gelu", fold=True)
+def _gelu(ctx, x):
+    approx = _attr_str(ctx, "approximate", "none")
+    return [F.gelu(_tensor(ctx, x), approximate="tanh" if approx == "tanh" else "none")]
+
+
+def _as_dtype_of(ctx, v, x: torch.Tensor) -> torch.Tensor:
+    """``jnp.asarray(v, dtype=x.dtype)`` on x's device."""
+    if _is_host(v):
+        v = np.asarray(v)
+        if v.dtype.kind == "f":
+            v = v.astype(np.float64)
+    return _tensor(ctx, v, x.device).to(x.dtype)
+
+
+@op("Clip", fold=True)
+def _clip(ctx, x, lo=None, hi=None):
+    x = _tensor(ctx, x)
+    if ctx.opset < 11:
+        lo = ctx.attr("min", -3.402823e38)
+        hi = ctx.attr("max", 3.402823e38)
+    if lo is not None:
+        x = torch.maximum(x, _as_dtype_of(ctx, lo, x))
+    if hi is not None:
+        x = torch.minimum(x, _as_dtype_of(ctx, hi, x))
+    return [x]
+
+
+@op("Where", fold=True)
+def _where(ctx, cond, a, b):
+    a, b = _promoted(ctx, a, b)
+    return [torch.where(_tensor(ctx, cond, a.device).to(torch.bool), a, b)]
+
+
+def _softmax_like(fn):
+    def impl(ctx, x):
+        x = _tensor(ctx, x)
+        if ctx.opset >= 13:
+            return [fn(x, int(ctx.attr("axis", -1)))]
+        # opset < 13: flatten from axis, normalize over the flattened tail.
+        axis = int(ctx.attr("axis", 1))
+        if axis < 0:
+            axis += x.ndim
+        flat = x.reshape(tuple(x.shape[:axis]) + (-1,))
+        return [fn(flat, -1).reshape(x.shape)]
+
+    return impl
+
+
+op("Softmax", fold=True)(_softmax_like(lambda x, d: torch.softmax(x, d)))
+op("LogSoftmax", fold=True)(_softmax_like(lambda x, d: torch.log_softmax(x, d)))
 
 
 # ---------------------------------------------------------------------------
-# matmul / gemm
+# matmul / gemm / einsum
 # ---------------------------------------------------------------------------
 
 
@@ -280,6 +798,15 @@ def _gemm(ctx, a, b, c=None):
         bias = _tensor(ctx, c, y.device).to(y.dtype)  # the policy's activation dtype
         y = y + (beta * bias if beta != 1.0 else bias)
     return [y]
+
+
+@op("Einsum", fold=True)
+def _einsum(ctx, *xs):
+    eq = "".join(str(_attr_str(ctx, "equation", "")).split())
+    xs = _promoted(ctx, *xs)
+    orig = xs[0].dtype
+    y = torch.einsum(eq, *_policy_operands(ctx, *xs))
+    return [_out_cast(ctx, y, orig)]
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +839,13 @@ def _resolve_pads(ctx, x_spatial, kernel, strides, dilations):
         else:
             raise ValueError(f"unsupported auto_pad {auto_pad!r}")
     return out
+
+
+def _pad_spatial(x, pads, value=0.0):
+    """``x`` padded by (lo, hi) per spatial dim; negative widths crop."""
+    if not any(lo or hi for lo, hi in pads):
+        return x
+    return F.pad(x, [p for lo, hi in reversed(pads) for p in (lo, hi)], value=value)
 
 
 def _polyphase_conv1d(ctx, x, w, b, stride, pads, orig):
@@ -357,6 +891,7 @@ def _polyphase_conv1d(ctx, x, w, b, stride, pads, orig):
 
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
 
 
 def _conv_geometry(ctx, x, w):
@@ -389,7 +924,7 @@ def _conv_nd(x, w, strides, dilations, group, pads):
         padding = [lo for lo, _ in pads]
     else:
         # torch pads symmetrically; asymmetric ONNX pads go in first.
-        x = F.pad(x, [p for lo, hi in reversed(pads) for p in (lo, hi)])
+        x = _pad_spatial(x, pads)
         padding = 0
     return _CONV[x.ndim - 2](x, w, None, strides, padding, dilations, group)
 
@@ -414,16 +949,52 @@ def _conv(ctx, x, w, b=None):
         and (x.shape[2] + sum(pads[0]) - w.shape[2]) // strides[0] >= 0
     ):
         return _polyphase_conv1d(ctx, x, w, b, strides[0], pads[0], orig)
-    if ctx.precision == "mixed":
-        x2, w2 = _bf16_in_f32(x, w)  # float32 sums (TF32 is off for cuDNN)
-    else:
-        x2, w2 = _mxu_operands(ctx, x, w)
+    x2, w2 = _policy_operands(ctx, x, w)  # mixed: float32 sums, TF32 off
     y = _conv_nd(x2, w2, strides, dilations, group, pads)
     y = _out_cast(ctx, y, orig)
     if b is not None:
         bias = _tensor(ctx, b, y.device).reshape((1, -1) + (1,) * nd)
         y = y + bias.to(y.dtype)
     return [y]
+
+
+@op("ConvTranspose", fold=True)
+def _conv_transpose(ctx, x, w, b=None):
+    """Transposed convolution (ONNX weight ``[C_in, C_out/group, *k]``, the
+    layout torch takes). torch's full output, ``(in - 1) * s + eff_k`` per
+    dim, is cropped by the (lo, hi) pads and extended by ``output_padding``,
+    which pads asymmetrically as the JAX lowering's transposed padding
+    ``(eff_k - 1 - lo, eff_k - 1 - hi + output_padding)`` does. The pads
+    come from ``pads`` or ``auto_pad`` as for Conv (``output_shape`` is not
+    read, as in the JAX lowering). Under the policies as Conv: the JAX
+    lowering convolves the operands as given, which raises under ``fast``
+    once activations are bf16 (its weights stay float32); the port rounds
+    both operands."""
+    x = _tensor(ctx, x, _device_of(ctx, x, w))
+    w = _tensor(ctx, w, x.device)
+    nd = x.ndim - 2
+    if nd not in _CONV_T:
+        raise NotImplementedError(f"ConvTranspose over {nd} spatial dims")
+    kernel = [int(k) for k in ctx.attr("kernel_shape", w.shape[2:])]
+    strides = [int(s) for s in ctx.attr("strides", [1] * nd)]
+    dilations = [int(d) for d in ctx.attr("dilations", [1] * nd)]
+    group = int(ctx.attr("group", 1))
+    output_padding = [int(p) for p in ctx.attr("output_padding", [0] * nd)]
+    pads = _resolve_pads(ctx, x.shape[2:], kernel, strides, dilations)
+    orig = x.dtype
+    x2, w2 = _policy_operands(ctx, x, w)
+    y = _CONV_T[nd](x2, w2, None, strides, 0, 0, group, dilations)
+    y = _pad_spatial(y, [(-lo, -hi + op_)
+                         for (lo, hi), op_ in zip(pads, output_padding)])
+    y = _out_cast(ctx, y, orig)
+    if b is not None:
+        y = y + _tensor(ctx, b, y.device).reshape((1, -1) + (1,) * nd).to(y.dtype)
+    return [y]
+
+
+# ---------------------------------------------------------------------------
+# normalization
+# ---------------------------------------------------------------------------
 
 
 @op("BatchNormalization")
@@ -440,15 +1011,309 @@ def _batchnorm(ctx, x, scale, bias, mean, var):
     return [x * inv + (bias - mean * inv)]
 
 
+def _channel_param(ctx, v, x):
+    return _tensor(ctx, v, x.device).reshape((1, -1) + (1,) * (x.ndim - 2))
+
+
+@op("InstanceNormalization", fold=True)
+def _instancenorm(ctx, x, scale, bias):
+    eps = float(ctx.attr("epsilon", 1e-5))
+    x = _tensor(ctx, x, _device_of(ctx, x, scale, bias))
+    axes = tuple(range(2, x.ndim))
+    mean, var = _jnp_mean(x, axes), _jnp_var(x, axes)
+    y = _channel_param(ctx, scale, x) * (x - mean) * torch.rsqrt(var + eps)
+    return [y + _channel_param(ctx, bias, x)]
+
+
+@op("LayerNormalization", fold=True)
+def _layernorm(ctx, x, scale, bias=None):
+    """(x - mean) * rsqrt(var + eps) * scale + bias over the axes from
+    ``axis``, with Mean and InvStdDev as extra outputs. As in the JAX
+    lowering, the statistics keep x's dtype (``stash_type`` is not read) and
+    a float32 scale lifts a bf16 activation's result to float32."""
+    axis = int(ctx.attr("axis", -1))
+    eps = float(ctx.attr("epsilon", 1e-5))
+    x = _tensor(ctx, x, _device_of(ctx, x, scale, bias))
+    if axis < 0:
+        axis += x.ndim
+    axes = tuple(range(axis, x.ndim))
+    mean, var = _jnp_mean(x, axes), _jnp_var(x, axes)
+    inv = torch.rsqrt(var + eps)
+    y, s = _promoted(ctx, (x - mean) * inv, scale)
+    y = y * s
+    if bias is not None:
+        y, b = _promoted(ctx, y, bias)
+        y = y + b
+    outs = [y]
+    if ctx.num_outputs > 1:
+        outs.append(mean)
+    if ctx.num_outputs > 2:
+        outs.append(inv)
+    return outs
+
+
+@op("GroupNormalization", fold=True)
+def _groupnorm(ctx, x, scale, bias):
+    """Group statistics, then a per-channel scale and bias. Opset 18 gives
+    one scale and bias per group, opset 21 one per channel: a per-group
+    vector (before opset 21, ``num_groups`` entries for more channels)
+    repeats over its group's channels. The JAX lowering reshapes it per
+    channel and raises on broadcasting."""
+    eps = float(ctx.attr("epsilon", 1e-5))
+    groups = int(ctx.attr("num_groups"))
+    x = _tensor(ctx, x, _device_of(ctx, x, scale, bias))
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.ndim))
+    xg = (xg - _jnp_mean(xg, axes)) * torch.rsqrt(_jnp_var(xg, axes) + eps)
+    y = xg.reshape(x.shape)
+
+    def per_channel(v):
+        v = _tensor(ctx, v, x.device).reshape(-1)
+        if ctx.opset < 21 and v.shape[0] == groups != c:
+            v = v.repeat_interleave(c // groups)
+        return v.reshape((1, -1) + (1,) * (x.ndim - 2))
+
+    return [y * per_channel(scale) + per_channel(bias)]
+
+
+@op("LRN", fold=True)
+def _lrn(ctx, x):
+    size = int(ctx.attr("size"))
+    alpha = float(ctx.attr("alpha", 1e-4))
+    beta = float(ctx.attr("beta", 0.75))
+    bias = float(ctx.attr("bias", 1.0))
+    x = _tensor(ctx, x)
+    half = size // 2
+    sq = F.pad(x * x, [0, 0] * (x.ndim - 2) + [half, size - 1 - half])
+    ssum = sq.unfold(1, size, 1).sum(-1)
+    return [x / torch.pow(bias + (alpha / size) * ssum, beta)]
+
+
 # ---------------------------------------------------------------------------
-# pooling, shape manipulation, reductions
+# pooling
 # ---------------------------------------------------------------------------
+
+
+def _pool_common(ctx, x):
+    """Window geometry for the pools (birdnet_tpu/compiler/ops.py:913-956):
+    ``(kernel, strides, dilations, pads, explicit_pads)`` per spatial dim.
+    ``pads`` holds the ceil-mode extension; ``explicit_pads`` only what the
+    attributes or auto_pad give, which AveragePool's ``count_include_pad``
+    divisor counts (torch and onnxruntime clip the edge windows' divisors
+    to real coverage)."""
+    nd = x.ndim - 2
+    kernel = [int(k) for k in ctx.attr("kernel_shape")]
+    strides = [int(s) for s in ctx.attr("strides", [1] * nd)]
+    dilations = [int(d) for d in ctx.attr("dilations", [1] * nd)]
+    if any(v < 1 for v in kernel + strides + dilations):
+        raise ValueError(
+            f"pool kernel/strides/dilations must be >= 1, got "
+            f"kernel={kernel} strides={strides} dilations={dilations}"
+        )
+    pads = _resolve_pads(ctx, x.shape[2:], kernel, strides, dilations)
+    explicit_pads = pads
+    if int(ctx.attr("ceil_mode", 0)):
+        # Size the end padding so the window count matches ceil division,
+        # except that a window starting in the right padding is dropped
+        # (the ONNX opset-19 clarification, as torch and onnxruntime do).
+        new_pads, new_explicit = [], []
+        for i in range(nd):
+            in_dim = x.shape[2 + i]
+            eff_k = (kernel[i] - 1) * dilations[i] + 1
+            lo, hi = pads[i]
+            out_ceil = -(-(in_dim + lo + hi - eff_k) // strides[i]) + 1
+            if (out_ceil - 1) * strides[i] >= lo + in_dim:
+                out_ceil -= 1
+            need = max(0, (out_ceil - 1) * strides[i] + eff_k - in_dim - lo)
+            new_pads.append((lo, need))
+            new_explicit.append((lo, min(hi, need)))
+        pads = new_pads
+        explicit_pads = new_explicit
+    return kernel, strides, dilations, pads, explicit_pads
+
+
+def _windows(x, kernel, strides, dilations):
+    """The pooling windows of ``x`` as a view ``[N, C, *out, *kernel]``
+    (kernel positions row-major), the counterpart of
+    ``lax.conv_general_dilated_patches``."""
+    for d in range(len(kernel)):
+        eff = (kernel[d] - 1) * dilations[d] + 1
+        x = x.unfold(2 + d, eff, strides[d])
+        if dilations[d] > 1:
+            x = x[..., ::dilations[d]]
+    return x
+
+
+def _window_sum(x, kernel, strides, dilations, pads):
+    nd = len(kernel)
+    w = _windows(_pad_spatial(x, pads), kernel, strides, dilations)
+    return w.sum(dim=tuple(range(-nd, 0)))
+
+
+def _lowest(dtype):
+    return -math.inf if dtype.is_floating_point else torch.iinfo(dtype).min
+
+
+@op("MaxPool", fold=True)
+def _maxpool(ctx, x):
+    """Max over windows padded with -inf (the integer minimum for integer
+    inputs), ``SAME_*``, ``ceil_mode`` and dilations as the JAX lowering
+    has them. The optional Indices output is the int64 position in the
+    WHOLE input tensor flattened row-major (N and C included), or with the
+    spatial block column-major under ``storage_order=1``; ties take the
+    first valid kernel position in row-major scan order (ONNX Runtime's
+    rule). torch's ``return_indices`` counts per plane, so the indices are
+    computed as the JAX lowering computes them, from the windows."""
+    x = _tensor(ctx, x)
+    kernel, strides, dils, pads, _ = _pool_common(ctx, x)
+    nd = x.ndim - 2
+    if x.is_floating_point() and nd in (1, 2, 3):
+        pool = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[nd - 1]
+        y = pool(_pad_spatial(x, pads, -math.inf), kernel, strides, 0, dils)
+    else:
+        y = _windows(_pad_spatial(x, pads, _lowest(x.dtype)), kernel, strides,
+                     dils).amax(dim=tuple(range(-nd, 0)))
+    if ctx.num_outputs == 1:
+        return [y]
+    # Indices: ±inf sanitized to the finite extremes for the index search
+    # only (the values above are exact), a validity mask keeping the argmax
+    # off padded cells even when a whole window ties at the minimum.
+    if x.is_floating_point():
+        fin = torch.finfo(x.dtype)
+        xi, pad_val = x.clamp(fin.min, fin.max), fin.min
+    else:
+        xi, pad_val = x, torch.iinfo(x.dtype).min
+    k_total = math.prod(kernel)
+    patches = _windows(_pad_spatial(xi, pads, pad_val), kernel, strides, dils)
+    out_sp = tuple(patches.shape[2:2 + nd])
+    patches = patches.reshape(tuple(x.shape[:2]) + out_sp + (k_total,))
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=torch.float32, device=x.device)
+    valid = _windows(_pad_spatial(ones, pads), kernel, strides, dils)
+    valid = valid.reshape((1, 1) + out_sp + (k_total,)) > 0.5
+    masked = torch.where(valid, patches, torch.full((), pad_val, dtype=x.dtype,
+                                                    device=x.device))
+    vmax = masked.amax(dim=-1, keepdim=True)
+    k_best = torch.argmax((valid & (masked == vmax)).to(torch.uint8), dim=-1)
+
+    n_b, n_c = x.shape[0], x.shape[1]
+    base = (torch.arange(n_b, device=x.device).reshape((n_b,) + (1,) * (1 + nd)) * n_c
+            + torch.arange(n_c, device=x.device).reshape((1, n_c) + (1,) * nd))
+    spatial = [x.shape[2 + d] for d in range(nd)]
+
+    def coord(d):
+        k_stride = math.prod(kernel[d + 1:])
+        off = (k_best // k_stride) % kernel[d]
+        pos = torch.arange(out_sp[d], device=x.device) * strides[d] - pads[d][0]
+        pos = pos.reshape((1, 1) + tuple(out_sp[d] if i == d else 1 for i in range(nd)))
+        return pos + off * dils[d]
+
+    if int(ctx.attr("storage_order", 0)):
+        flat, stride = base * math.prod(spatial), 1
+        for d in range(nd):
+            flat = flat + coord(d) * stride
+            stride *= spatial[d]
+    else:
+        flat = base
+        for d in range(nd):
+            flat = flat * spatial[d] + coord(d)
+    return [y, flat.to(torch.int64)]
+
+
+@op("MaxUnpool", fold=True)
+def _max_unpool(ctx, x, indices, output_shape=None):
+    """Inverse of MaxPool: the pooled values scattered back to their
+    recorded positions (whole-tensor row-major flat indices, the MaxPool
+    Indices convention), zeros elsewhere."""
+    x = _tensor(ctx, x, _device_of(ctx, x, indices))
+    idx = _tensor(ctx, indices, x.device).to(torch.int64)
+    nd = x.ndim - 2
+    kernel = [int(k) for k in ctx.attr("kernel_shape")]
+    strides = [int(s) for s in ctx.attr("strides", [1] * nd)]
+    pads_attr = [int(p) for p in ctx.attr("pads", [0] * (2 * nd))]
+    if output_shape is not None:
+        out_shape = _static_ints(output_shape, "MaxUnpool output_shape")
+    else:
+        out_shape = list(x.shape[:2]) + [
+            (x.shape[2 + i] - 1) * strides[i] + kernel[i]
+            - pads_attr[i] - pads_attr[nd + i]
+            for i in range(nd)
+        ]
+    flat = x.new_zeros(math.prod(out_shape))
+    flat = flat.index_put((idx.reshape(-1),), x.reshape(-1))
+    return [flat.reshape(out_shape)]
+
+
+@op("AveragePool", fold=True)
+def _avgpool(ctx, x):
+    """Window sums over zero padding divided by the count of cells each
+    window covers: with ``count_include_pad`` the explicit padding counts
+    and the ceil-mode overhang does not (torch's own divisor differs at the
+    ceil edge), without it only the input's cells count."""
+    x = _tensor(ctx, x)
+    kernel, strides, dils, pads, explicit = _pool_common(ctx, x)
+    ssum = _window_sum(x, kernel, strides, dils, pads)
+    count_include_pad = int(ctx.attr("count_include_pad", 0))
+    if count_include_pad and pads == explicit:
+        return [ssum / _tensor(ctx, np.float32(math.prod(kernel)), x.device)]
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
+    if count_include_pad:
+        ones = _pad_spatial(ones, explicit, 1.0)
+        pads = [(lo_t - lo_e, hi_t - hi_e)
+                for (lo_t, hi_t), (lo_e, hi_e) in zip(pads, explicit)]
+    return [ssum / _window_sum(ones, kernel, strides, dils, pads)]
 
 
 @op("GlobalAveragePool")
 def _global_avgpool(ctx, x):
     x = _tensor(ctx, x)
     return [x.mean(dim=tuple(range(2, x.ndim)), keepdim=True)]
+
+
+@op("GlobalMaxPool", fold=True)
+def _global_maxpool(ctx, x):
+    x = _tensor(ctx, x)
+    return [x.amax(dim=tuple(range(2, x.ndim)), keepdim=True)]
+
+
+# ---------------------------------------------------------------------------
+# shape manipulation
+# ---------------------------------------------------------------------------
+
+
+@op("Shape")
+def _shape(ctx, x):
+    shape = np.asarray(tuple(x.shape), dtype=np.int64)
+    start = int(ctx.attr("start", 0))
+    end = ctx.attr("end")
+    return [shape[start: int(end) if end is not None else None]]
+
+
+@op("Size")
+def _size(ctx, x):
+    return [np.int64(math.prod(x.shape))]
+
+
+@op("Reshape")
+def _reshape(ctx, x, shape=None):
+    if shape is None:
+        # Opsets 1-4 carry the target as a `shape` attribute.
+        shape = ctx.attr("shape")
+        if shape is None:
+            raise ValueError("Reshape without a shape input or attribute")
+    dims = _static_ints(shape, "Reshape shape")
+    allowzero = int(ctx.attr("allowzero", 0))
+    out = [x.shape[i] if d == 0 and not allowzero else d for i, d in enumerate(dims)]
+    return [x.reshape(out)]
+
+
+@op("Transpose")
+def _transpose(ctx, x):
+    perm = ctx.attr("perm")
+    perm = [int(p) for p in perm] if perm is not None else list(range(x.ndim))[::-1]
+    if isinstance(x, torch.Tensor):
+        return [x.permute(perm)]
+    return [np.transpose(x, perm)]
 
 
 @op("Flatten")
@@ -463,7 +1328,7 @@ def _flatten(ctx, x):
 def _axes_arg(ctx, axes_input):
     """Resolve axes from attr (opset<13) or input (>=13)."""
     if axes_input is not None:
-        return _ints(axes_input, "axes")
+        return _static_ints(axes_input, "axes")
     axes = ctx.attr("axes")
     return [int(a) for a in axes] if axes is not None else None
 
@@ -496,13 +1361,300 @@ def _unsqueeze(ctx, x, axes=None):
     return [x]
 
 
-@op("Transpose")
-def _transpose(ctx, x):
-    perm = ctx.attr("perm")
-    perm = [int(p) for p in perm] if perm is not None else list(range(x.ndim))[::-1]
-    if isinstance(x, torch.Tensor):
-        return [x.permute(perm)]
-    return [np.transpose(x, perm)]
+@op("Concat")
+def _concat(ctx, *xs):
+    axis = ctx.attr("axis")
+    if axis is None and ctx.opset <= 3:
+        axis = 1  # opsets 1-3: axis optional, default 1
+    axis = int(axis)
+    if all(_is_host(x) for x in xs):
+        return [np.concatenate([np.asarray(x) for x in xs], axis=axis)]
+    return [torch.cat(_promoted(ctx, *xs), dim=axis)]
+
+
+@op("Split", fold=True)
+def _split(ctx, x, split=None):
+    x = _tensor(ctx, x)
+    axis = int(ctx.attr("axis", 0))
+    if axis < 0:
+        axis += x.ndim
+    if split is None:
+        split = ctx.attr("split")
+    if split is not None:
+        sizes = _static_ints(split, "Split sizes")
+        return list(torch.split(x, sizes, dim=axis))
+    n = ctx.num_outputs
+    total = x.shape[axis]
+    size = -(-total // n)
+    return [x.narrow(axis, min(i * size, total), max(0, min(size, total - i * size)))
+            for i in range(n)]
+
+
+def _slice_axis(x: torch.Tensor, ax: int, st: int, en: int, sp: int) -> torch.Tensor:
+    """One axis of an ONNX Slice with its clamping (INT64_MAX/MIN sentinels
+    included); torch slices take no negative step, so one reads the flipped
+    axis."""
+    dim = x.shape[ax]
+    if sp > 0:
+        st = max(st + dim, 0) if st < 0 else min(st, dim)
+        en = max(en + dim, 0) if en < 0 else min(en, dim)
+        return x[(slice(None),) * ax + (slice(st, en, sp),)]
+    # Negative step: ONNX clamps start into [0, dim-1].
+    st = max(st + dim, 0) if st < 0 else min(st, dim - 1)
+    en = en + dim if -dim <= en < 0 else en
+    picked = range(dim)[slice(st, None if en < 0 else en, sp)]
+    if not picked:
+        return x.narrow(ax, 0, 0)
+    j0 = dim - 1 - picked[0]
+    flipped = x.flip(ax)
+    return flipped[(slice(None),) * ax + (slice(j0, j0 - sp * (len(picked) - 1) + 1, -sp),)]
+
+
+@op("Slice", fold=True)
+def _slice(ctx, x, starts=None, ends=None, axes=None, steps=None):
+    x = _tensor(ctx, x)
+    if ctx.opset < 10 or starts is None:
+        starts, ends = ctx.attr("starts"), ctx.attr("ends")
+        axes, steps = ctx.attr("axes"), None
+    starts = _static_ints(starts, "Slice starts")
+    ends = _static_ints(ends, "Slice ends")
+    axes_l = list(range(len(starts))) if axes is None else _static_ints(axes, "Slice axes")
+    steps_l = [1] * len(starts) if steps is None else _static_ints(steps, "Slice steps")
+    for st, en, ax, sp in zip(starts, ends, axes_l, steps_l):
+        x = _slice_axis(x, ax + x.ndim if ax < 0 else ax, st, en, sp)
+    return [x]
+
+
+def _index(ctx, indices, device, n: int) -> torch.Tensor:
+    """Indices as int64 on ``device``, negative ones counted from ``n``."""
+    idx = _tensor(ctx, indices, device).to(torch.int64)
+    return torch.where(idx < 0, idx + n, idx)
+
+
+@op("Gather", fold=True)
+def _gather(ctx, x, indices):
+    x = _tensor(ctx, x, _device_of(ctx, x, indices))
+    axis = int(ctx.attr("axis", 0))
+    if axis < 0:
+        axis += x.ndim
+    idx = _index(ctx, indices, x.device, x.shape[axis])
+    out = x.index_select(axis, idx.reshape(-1))
+    return [out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape) + tuple(x.shape[axis + 1:]))]
+
+
+@op("GatherElements", fold=True)
+def _gather_elements(ctx, x, indices):
+    x = _tensor(ctx, x, _device_of(ctx, x, indices))
+    axis = int(ctx.attr("axis", 0))
+    if axis < 0:
+        axis += x.ndim
+    return [torch.gather(x, axis, _index(ctx, indices, x.device, x.shape[axis]))]
+
+
+@op("GatherND", fold=True)
+def _gather_nd(ctx, x, indices):
+    x = _tensor(ctx, x, _device_of(ctx, x, indices))
+    idx = _tensor(ctx, indices, x.device).to(torch.int64)
+    b = int(ctx.attr("batch_dims", 0))
+    k = idx.shape[-1]
+    n_batch = math.prod(x.shape[:b])
+    xb = x.reshape((n_batch,) + tuple(x.shape[b:]))
+    ib = idx.reshape(n_batch, -1, k)
+    coords = [torch.where(ib[..., i] < 0, ib[..., i] + x.shape[b + i], ib[..., i])
+              for i in range(k)]
+    rows = torch.arange(n_batch, device=x.device).reshape(n_batch, 1)
+    out = xb[(rows, *coords)]
+    return [out.reshape(tuple(idx.shape[:-1]) + tuple(x.shape[b + k:]))]
+
+
+def _row_major_strides(shape) -> List[int]:
+    strides, acc = [], 1
+    for d in reversed(shape):
+        strides.append(acc)
+        acc *= d
+    return strides[::-1]
+
+
+def _segment_fold(vals: torch.Tensor, seg: torch.Tensor, fn) -> torch.Tensor:
+    """Inclusive segmented scan of ``vals`` (``seg`` sorted, equal values
+    one segment) in ceil(log2 n) passes of fixed order: each element's last
+    value of its segment is the segment's fold. The same elementwise ops in
+    the same order on every device, so no result depends on an order of
+    atomics."""
+    d, n = 1, vals.shape[0]
+    while d < n:
+        same = seg[d:] == seg[:-d]
+        vals = torch.cat([vals[:d], torch.where(same, fn(vals[:-d], vals[d:]), vals[d:])])
+        d *= 2
+    return vals
+
+
+_SCATTER_REDUCE = {"add": "sum", "mul": "prod", "min": "amin", "max": "amax"}
+_SCATTER_FOLD = {"add": torch.add, "mul": torch.mul}
+
+
+def _scatter_flat(x: torch.Tensor, dest: torch.Tensor, upd: torch.Tensor,
+                  reduction: str) -> torch.Tensor:
+    """``x`` with ``upd`` scattered at the flat positions ``dest`` under an
+    ONNX reduction. A float sum or product over repeated positions folds
+    each position's updates by ``_segment_fold`` after a stable sort, so
+    its bits do not depend on CUDA's order of atomics (the reduction's
+    order differs from the JAX lowering's sequential one within float
+    rounding); min, max and integer sums are exact in any order."""
+    flat = x.reshape(-1)
+    dest, upd = dest.reshape(-1), upd.reshape(-1).to(x.dtype)
+    if reduction in ("none", None):
+        return flat.index_put((dest,), upd).reshape(x.shape)
+    if reduction not in _SCATTER_REDUCE:
+        raise NotImplementedError(f"scatter reduction {reduction!r}")
+    if reduction in _SCATTER_FOLD and x.is_floating_point() and dest.numel():
+        seg, perm = torch.sort(dest, stable=True)
+        folded = _segment_fold(upd[perm], seg, _SCATTER_FOLD[reduction])
+        last = torch.ones_like(seg, dtype=torch.bool)
+        last[:-1] = seg[1:] != seg[:-1]
+        total = flat.shape[0]
+        target = torch.where(last, seg, torch.full_like(seg, total))
+        out = torch.cat([flat, flat.new_zeros(1)])
+        out = out.scatter(0, target, _SCATTER_FOLD[reduction](out[seg], folded))
+        return out[:total].reshape(x.shape)
+    return flat.scatter_reduce(0, dest, upd, _SCATTER_REDUCE[reduction],
+                               include_self=True).reshape(x.shape)
+
+
+@op("ScatterElements", "Scatter", fold=True)
+def _scatter_elements(ctx, x, indices, updates):
+    """``Scatter`` is the deprecated (opset 9-10) spelling of the same op
+    (birdnet_tpu/compiler/ops_extended.py:161)."""
+    device = _device_of(ctx, x, indices, updates)
+    x = _tensor(ctx, x, device)
+    axis = int(ctx.attr("axis", 0))
+    if axis < 0:
+        axis += x.ndim
+    idx = _index(ctx, indices, device, x.shape[axis])
+    upd = _tensor(ctx, updates, device)
+    strides = _row_major_strides(x.shape)
+    dest = idx * strides[axis]
+    for d in range(x.ndim):
+        if d != axis:
+            shape = [1] * x.ndim
+            shape[d] = idx.shape[d]
+            dest = dest + torch.arange(idx.shape[d], device=device).reshape(shape) * strides[d]
+    return [_scatter_flat(x, dest, upd, _attr_str(ctx, "reduction", "none"))]
+
+
+@op("ScatterND", fold=True)
+def _scatter_nd(ctx, x, indices, updates):
+    device = _device_of(ctx, x, indices, updates)
+    x = _tensor(ctx, x, device)
+    idx = _tensor(ctx, indices, device).to(torch.int64)
+    k = idx.shape[-1]
+    rows = idx.reshape(-1, k)
+    slice_size = math.prod(x.shape[k:])
+    strides = _row_major_strides(x.shape[:k])
+    row_lin = torch.zeros(rows.shape[0], dtype=torch.int64, device=device)
+    for i in range(k):
+        c = rows[:, i]
+        row_lin = row_lin + torch.where(c < 0, c + x.shape[i], c) * strides[i]
+    dest = row_lin[:, None] * slice_size + torch.arange(slice_size, device=device)
+    upd = _tensor(ctx, updates, device)
+    return [_scatter_flat(x, dest, upd, _attr_str(ctx, "reduction", "none"))]
+
+
+@op("Expand", fold=True)
+def _expand(ctx, x, shape):
+    dims = _static_ints(shape, "Expand shape")
+    x = _tensor(ctx, x)
+    return [torch.broadcast_to(x, np.broadcast_shapes(tuple(x.shape), tuple(dims)))]
+
+
+@op("Tile", fold=True)
+def _tile(ctx, x, repeats, legacy_axis=None):
+    x = _tensor(ctx, x)
+    if legacy_axis is not None:
+        # Opsets 1-6: (input, tiles, axis), `tiles` repeats along `axis`.
+        reps = [1] * x.ndim
+        reps[_static_int(legacy_axis, "Tile axis")] = _static_int(repeats, "Tile tiles")
+    else:
+        reps = _static_ints(repeats, "Tile repeats")
+    reps = [1] * (x.ndim - len(reps)) + list(reps)
+    return [x.repeat(reps)]
+
+
+@op("Pad", fold=True)
+def _pad(ctx, x, pads=None, constant_value=None, axes=None):
+    """constant, reflect, edge and wrap; negative pads crop; ``axes``
+    (opset 18) names the padded axes. reflect/edge/wrap gather each padded
+    axis by the index map numpy's own pad gives (any rank, any axis)."""
+    x = _tensor(ctx, x)
+    mode = _attr_str(ctx, "mode", "constant")
+    if pads is None:
+        pads_attr = ctx.attr("pads")
+        if pads_attr is None:
+            pads_attr = ctx.attr("paddings")  # opset 1's spelling
+        if pads_attr is None:
+            raise ValueError("Pad without pads input or pads/paddings attr")
+        pads_l = [int(p) for p in pads_attr]
+    else:
+        pads_l = _static_ints(pads, "Pad pads")
+    ax = _static_ints(axes, "Pad axes") if axes is not None else list(range(x.ndim))
+    width = [(0, 0)] * x.ndim
+    for i, a in enumerate(ax):
+        width[a + x.ndim if a < 0 else a] = (pads_l[i], pads_l[i + len(ax)])
+    if any(lo < 0 or hi < 0 for lo, hi in width):
+        for d, (lo, hi) in enumerate(width):
+            start = -lo if lo < 0 else 0
+            stop = x.shape[d] + hi if hi < 0 else x.shape[d]
+            x = x.narrow(d, start, max(0, stop - start))
+        width = [(max(lo, 0), max(hi, 0)) for lo, hi in width]
+    if mode == "constant":
+        # opset < 11: the `value` attribute; from 11 the constant_value input.
+        cv = ctx.attr("value", 0.0)
+        if constant_value is not None:
+            cv = _static_array(constant_value, "Pad constant_value").reshape(-1)
+            cv = cv[0].item() if cv.size else 0
+        return [F.pad(x, [p for lo, hi in reversed(width) for p in (lo, hi)], value=cv)]
+    if mode not in ("reflect", "edge", "wrap"):
+        raise ValueError(f"unsupported Pad mode {mode!r}")
+    for d, (lo, hi) in enumerate(width):
+        if lo or hi:
+            src = np.pad(np.arange(x.shape[d]), (lo, hi), mode=mode)
+            x = x.index_select(d, _tensor(ctx, src, x.device))
+    return [x]
+
+
+@op("Range")
+def _range(ctx, start, limit, delta):
+    s = _static_array(start, "Range start").reshape(())
+    lim = _static_array(limit, "Range limit").reshape(())
+    d = _static_array(delta, "Range delta").reshape(())
+    if np.issubdtype(s.dtype, np.floating):
+        # ONNX's length ceil((limit - start) / delta); k * delta + start in
+        # float64, as the JAX lowering computes it.
+        n = max(0, int(np.ceil((float(lim) - float(s)) / float(d))))
+        return [(np.arange(n, dtype=np.float64) * float(d) + float(s)).astype(s.dtype)]
+    return [np.arange(int(s), int(lim), int(d), dtype=s.dtype)]
+
+
+@op("OneHot", fold=True)
+def _onehot(ctx, indices, depth, values):
+    """jax.nn.one_hot: indices equal to 0..depth-1 hit, every other index
+    (negative ones too) gives the off value; values ``[off, on]``."""
+    d = _static_int(depth, "OneHot depth")
+    device = _device_of(ctx, indices, values)
+    idx = _tensor(ctx, indices, device)
+    vals = _tensor(ctx, values, device)
+    axis = int(ctx.attr("axis", -1))
+    if axis < 0:
+        axis += idx.ndim + 1
+    shape = [1] * (idx.ndim + 1)
+    shape[axis] = d
+    hit = idx.unsqueeze(axis) == torch.arange(d, device=device).reshape(shape)
+    return [hit.to(vals.dtype) * (vals[1] - vals[0]) + vals[0]]
+
+
+# ---------------------------------------------------------------------------
+# reductions
+# ---------------------------------------------------------------------------
 
 
 def _reduce_axes(ctx, x, axes):
@@ -515,6 +1667,42 @@ def _reduce_axes(ctx, x, axes):
             return None
         return tuple(range(x.ndim))
     return tuple(a + x.ndim if a < 0 else a for a in ax)
+
+
+def _reduce(fn):
+    def impl(ctx, x, axes=None):
+        x = _tensor(ctx, x)
+        ax = _reduce_axes(ctx, x, axes)
+        if ax is None:
+            return [x]
+        return [fn(x, ax, bool(int(ctx.attr("keepdims", 1))))]
+
+    return impl
+
+
+def _prod(x, dims, keepdim):
+    """Product over several axes (torch.prod takes one)."""
+    rest = [d for d in range(x.ndim) if d not in dims]
+    moved = x.permute(rest + list(dims)).reshape([x.shape[d] for d in rest] + [-1])
+    y = moved.prod(dim=-1)
+    if keepdim:
+        y = y.reshape([1 if d in dims else x.shape[d] for d in range(x.ndim)])
+    return y
+
+
+def _float(x):
+    return x if x.is_floating_point() else x.float()
+
+
+op("ReduceSum", fold=True)(_reduce(lambda x, d, k: torch.sum(x, dim=d, keepdim=k)))
+op("ReduceMax", fold=True)(_reduce(lambda x, d, k: torch.amax(x, dim=d, keepdim=k)))
+op("ReduceMin", fold=True)(_reduce(lambda x, d, k: torch.amin(x, dim=d, keepdim=k)))
+op("ReduceProd", fold=True)(_reduce(_prod))
+op("ReduceL1", fold=True)(_reduce(lambda x, d, k: torch.sum(torch.abs(x), dim=d, keepdim=k)))
+op("ReduceL2", fold=True)(_reduce(lambda x, d, k: torch.sqrt(torch.sum(x * x, dim=d, keepdim=k))))
+op("ReduceLogSum", fold=True)(_reduce(lambda x, d, k: torch.log(torch.sum(x, dim=d, keepdim=k))))
+op("ReduceLogSumExp", fold=True)(_reduce(
+    lambda x, d, k: torch.logsumexp(_float(x), dim=d, keepdim=k)))
 
 
 @op("ReduceSumSquare")
@@ -537,97 +1725,107 @@ def _reduce_mean(ctx, x, axes=None):
     ax = _reduce_axes(ctx, x, axes)
     if ax is None:
         return [x]
-    keepdims = bool(int(ctx.attr("keepdims", 1)))
-    if not x.is_floating_point():
-        out_dtype = torch.float32
+    return [_jnp_mean(x, ax, bool(int(ctx.attr("keepdims", 1))))]
+
+
+def _arg_reduce(fn):
+    def impl(ctx, x):
+        x = _tensor(ctx, x)
+        axis = int(ctx.attr("axis", 0))
+        if axis < 0:
+            axis += x.ndim
+        if int(ctx.attr("select_last_index", 0)):
+            # torch.arg{max,min} give the FIRST tied index: flip the axis
+            # and mirror the result for the last.
+            y = x.shape[axis] - 1 - fn(x.flip(axis), dim=axis)
+        else:
+            y = fn(x, dim=axis)
+        y = y.to(torch.int64)
+        return [y.unsqueeze(axis) if int(ctx.attr("keepdims", 1)) else y]
+
+    return impl
+
+
+op("ArgMax", fold=True)(_arg_reduce(torch.argmax))
+op("ArgMin", fold=True)(_arg_reduce(torch.argmin))
+
+
+@op("TopK", fold=True)
+def _topk(ctx, x, k=None):
+    """The k largest (or smallest) along ``axis``, sorted, ties in index
+    order (lower index first), as lax.top_k gives them: a stable sort,
+    since torch.topk on CUDA leaves the order of ties open."""
+    x = _tensor(ctx, x)
+    if k is not None:
+        kk = _static_int(k, "TopK k")
     else:
-        out_dtype = x.dtype
-    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
-    return [x.to(acc).mean(dim=ax, keepdim=keepdims).to(out_dtype)]
+        k_attr = ctx.attr("k")  # opset < 10: a required attribute
+        if k_attr is None:
+            raise ValueError("TopK (opset<10) requires the k attribute")
+        kk = int(k_attr)
+    axis = int(ctx.attr("axis", -1))
+    largest = int(ctx.attr("largest", 1))
+    vals, idxs = torch.sort(x, dim=axis, descending=bool(largest), stable=True)
+    return [vals.narrow(axis, 0, kk), idxs.narrow(axis, 0, kk).to(torch.int64)]
+
+
+@op("CumSum", fold=True)
+def _cumsum(ctx, x, axis):
+    ax = _static_int(axis, "CumSum axis")
+    x = _tensor(ctx, x)
+    if int(ctx.attr("reverse", 0)):
+        x = x.flip(ax)
+    y = torch.cumsum(x, dim=ax)
+    if int(ctx.attr("exclusive", 0)):
+        y = y - x  # as the JAX lowering computes it
+    if int(ctx.attr("reverse", 0)):
+        y = y.flip(ax)
+    return [y]
 
 
 # ---------------------------------------------------------------------------
-# signal ops
+# misc
 # ---------------------------------------------------------------------------
 
 
-@op("MelWeightMatrix")
-def _mel_weight_matrix(ctx, num_mel_bins, dft_length, sample_rate,
-                       lower_edge_hertz, upper_edge_hertz):
-    """Triangular mel filterbank per the ONNX spec (HTK mel scale), built
-    once per device and geometry."""
-    return [_mel_matrix(
-        _ints(num_mel_bins, "num_mel_bins")[0],
-        _ints(dft_length, "dft_length")[0],
-        _ints(sample_rate, "sample_rate")[0],
-        float(np.asarray(lower_edge_hertz).reshape(-1)[0]),
-        float(np.asarray(upper_edge_hertz).reshape(-1)[0]),
-        int(ctx.attr("output_datatype", 1)),
-        ctx.device,
-    )]
+@op("Celu", fold=True)
+def _celu(ctx, x):
+    alpha = float(ctx.attr("alpha", 1.0))
+    x = _tensor(ctx, x)
+    return [torch.clamp(x, min=0) + torch.clamp(alpha * torch.expm1(x / alpha), max=0)]
 
 
-@functools.lru_cache(maxsize=8)
-def _mel_matrix(m, dft, sr, lo, hi, onnx_dtype, device) -> torch.Tensor:
-    from ._melbank import mel_weight_matrix
-
-    arr = mel_weight_matrix(m, dft, sr, lo, hi).astype(_ONNX_TO_NP[onnx_dtype])
-    return torch.from_numpy(arr).to(device)
-
-
-@op("STFT")
-def _stft(ctx, signal, frame_step, window=None, frame_length=None):
-    """Short-time Fourier transform (ONNX opset 17) of a real signal
-    ``[B, L]`` or ``[B, L, 1]``: ``[B, frames, bins, 2]`` (real, imag).
-
-    The DFT is a matmul against a cos/sin basis. Under ``fast``/``bf16``
-    the operands are rounded to bf16 and the product accumulates in float32
-    (as the JAX lowering's ``preferred_element_type``); ``fp32`` and
-    ``mixed`` keep full float32 passes, because spectra cancel.
-    """
-    x = _tensor(ctx, signal)
-    if x.ndim == 3:
-        if x.shape[2] != 1:
-            raise NotImplementedError("complex STFT input not supported")
-        x = x[:, :, 0]
-    step = _ints(frame_step, "STFT frame_step")[0]
-    if frame_length is not None:
-        flen = _ints(frame_length, "STFT frame_length")[0]
-    elif window is not None:
-        flen = int(window.shape[0])
-    else:
-        raise ValueError("STFT needs frame_length or window")
-    onesided = int(ctx.attr("onesided", 1))
-    bins = flen // 2 + 1 if onesided else flen
-    n_frames = (x.shape[1] - flen) // step + 1
-    if n_frames <= 0:
-        return [x.new_zeros((x.shape[0], 0, bins, 2))]
-    frames = x.unfold(1, flen, step)  # [B, frames, flen]
-    if window is not None:
-        win = _tensor(ctx, window, x.device).to(frames.dtype)
-        if win.shape[0] < flen:
-            # Spec: windows shorter than frame_length are zero-padded.
-            win = F.pad(win, (0, flen - win.shape[0]))
-        frames = frames * win
-    if flen > 4096:
-        spec = (torch.fft.rfft if onesided else torch.fft.fft)(frames.float(), dim=-1)
-        return [torch.stack([spec.real, spec.imag], dim=-1).to(x.dtype)]
-    basis = _dft_basis(flen, bins, x.device)
-    frames = frames.float()
-    if ctx.precision in ("fast", "bf16"):
-        frames = frames.to(torch.bfloat16).float()
-        basis = basis.to(torch.bfloat16).float()
-    out = torch.matmul(frames, basis)
-    return [torch.stack([out[..., :bins], out[..., bins:]], dim=-1).to(x.dtype)]
+@op("ThresholdedRelu", fold=True)
+def _thresholded_relu(ctx, x):
+    alpha = float(ctx.attr("alpha", 1.0))
+    x = _tensor(ctx, x)
+    return [torch.where(x > alpha, x, 0.0)]
 
 
-@functools.lru_cache(maxsize=8)
-def _dft_basis(flen: int, bins: int, device: torch.device) -> torch.Tensor:
-    """``[flen, 2*bins]`` float32 cos/sin DFT basis on ``device``, built once
-    (the JAX lowering builds it at trace time)."""
-    ang = (-2.0 * np.pi / flen) * np.outer(np.arange(flen), np.arange(bins))
-    basis = np.concatenate([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
-    return torch.from_numpy(basis).to(device)
+@op("Shrink", fold=True)
+def _shrink(ctx, x):
+    lambd = float(ctx.attr("lambd", 0.5))
+    bias = float(ctx.attr("bias", 0.0))
+    x = _tensor(ctx, x)
+    return [torch.where(x < -lambd, x + bias, torch.where(x > lambd, x - bias, 0.0))]
+
+
+@op("Trilu", fold=True)
+def _trilu(ctx, x, k=None):
+    x = _tensor(ctx, x)
+    kk = _static_int(k, "Trilu k") if k is not None else 0
+    return [torch.triu(x, kk) if int(ctx.attr("upper", 1)) else torch.tril(x, kk)]
+
+
+@op("EyeLike", fold=True)
+def _eyelike(ctx, x):
+    dtype = ctx.attr("dtype")
+    device = _device_of(ctx, x)
+    dt = _ONNX_TO_TORCH[int(dtype)] if dtype is not None else (
+        x.dtype if isinstance(x, torch.Tensor) else _torch_dtype(np.asarray(x).dtype))
+    rows = torch.arange(x.shape[0], device=device).reshape(-1, 1)
+    cols = torch.arange(x.shape[1], device=device).reshape(1, -1)
+    return [(cols - rows == int(ctx.attr("k", 0))).to(dt)]
 
 
 # ---------------------------------------------------------------------------
@@ -645,28 +1843,6 @@ def _dft_basis(flen: int, bins: int, device: torch.device) -> torch.Tensor:
 # tensor, because CUDA's true division turns a host-scalar divisor into a
 # multiply by its float32 reciprocal, which flips round-half-even ties.
 # ---------------------------------------------------------------------------
-
-
-def _is_host(x) -> bool:
-    """True for a host value (numpy or Python), the port's counterpart of
-    the JAX package's compile-time static values."""
-    return not isinstance(x, torch.Tensor)
-
-
-@functools.lru_cache(maxsize=4096)
-def _device_array(raw: bytes, dtype: str, shape, device) -> torch.Tensor:
-    arr = np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)
-    return torch.from_numpy(arr.copy()).to(device)
-
-
-def _on_device(x, device) -> torch.Tensor:
-    """``x`` as a tensor on ``device``. Host arrays are uploaded once per
-    value and shared: callers never write to the result."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device)
-    arr = np.ascontiguousarray(x)
-    return _device_array(arr.tobytes(), arr.dtype.str, arr.shape,
-                         torch.device(device))
 
 
 def _bcast_channel(v: torch.Tensor, ndim: int, axis: int) -> torch.Tensor:
@@ -1112,3 +2288,261 @@ def _fused_stft_frontend(ctx, x):
         eps=float(ctx.attr("eps")),
     )  # [N, M, T], the mel-image orientation
     return [out[:, None]]
+
+
+# ---------------------------------------------------------------------------
+# signal ops
+# ---------------------------------------------------------------------------
+
+
+@op("HannWindow", "HammingWindow", "BlackmanWindow")
+def _window(ctx, size):
+    n = _static_int(size, f"{ctx.op_type} size")
+    periodic = int(ctx.attr("periodic", 1))
+    denom = n if periodic else n - 1
+    w = 2.0 * np.pi * np.arange(n, dtype=np.float64) / denom
+    if ctx.op_type == "HannWindow":
+        out = 0.5 - 0.5 * np.cos(w)
+    elif ctx.op_type == "HammingWindow":
+        out = 25.0 / 46.0 - (21.0 / 46.0) * np.cos(w)
+    else:  # BlackmanWindow
+        out = 0.42 - 0.5 * np.cos(w) + 0.08 * np.cos(2.0 * w)
+    dtype = _ONNX_TO_TORCH[int(ctx.attr("output_datatype", 1))]
+    try:
+        return [out.astype(torch.empty(0, dtype=dtype).numpy().dtype)]
+    except TypeError:  # bf16 and float8 have no numpy dtype
+        return [_tensor(ctx, out).to(dtype)]
+
+
+@op("MelWeightMatrix")
+def _mel_weight_matrix(ctx, num_mel_bins, dft_length, sample_rate,
+                       lower_edge_hertz, upper_edge_hertz):
+    """Triangular mel filterbank per the ONNX spec (HTK mel scale), built
+    once per device and geometry."""
+    return [_mel_matrix(
+        _static_int(num_mel_bins, "num_mel_bins"),
+        _static_int(dft_length, "dft_length"),
+        _static_int(sample_rate, "sample_rate"),
+        float(_static_array(lower_edge_hertz, "lower_edge_hertz").reshape(-1)[0]),
+        float(_static_array(upper_edge_hertz, "upper_edge_hertz").reshape(-1)[0]),
+        int(ctx.attr("output_datatype", 1)),
+        ctx.device,
+    )]
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_matrix(m, dft, sr, lo, hi, onnx_dtype, device) -> torch.Tensor:
+    from ._melbank import mel_weight_matrix
+
+    arr = mel_weight_matrix(m, dft, sr, lo, hi).astype(_ONNX_TO_NP[onnx_dtype])
+    return torch.from_numpy(arr).to(device)
+
+
+@op("STFT")
+def _stft(ctx, signal, frame_step, window=None, frame_length=None):
+    """Short-time Fourier transform (ONNX opset 17) of a real signal
+    ``[B, L]`` or ``[B, L, 1]``: ``[B, frames, bins, 2]`` (real, imag).
+
+    The DFT is a matmul against a cos/sin basis. Under ``fast``/``bf16``
+    the operands are rounded to bf16 and the product accumulates in float32
+    (as the JAX lowering's ``preferred_element_type``); ``fp32`` and
+    ``mixed`` keep full float32 passes, because spectra cancel.
+    """
+    x = _tensor(ctx, signal)
+    if x.ndim == 3:
+        if x.shape[2] != 1:
+            raise NotImplementedError("complex STFT input not supported")
+        x = x[:, :, 0]
+    step = _static_int(frame_step, "STFT frame_step")
+    if frame_length is not None:
+        flen = _static_int(frame_length, "STFT frame_length")
+    elif window is not None:
+        flen = int(window.shape[0])
+    else:
+        raise ValueError("STFT needs frame_length or window")
+    onesided = int(ctx.attr("onesided", 1))
+    bins = flen // 2 + 1 if onesided else flen
+    n_frames = (x.shape[1] - flen) // step + 1
+    if n_frames <= 0:
+        return [x.new_zeros((x.shape[0], 0, bins, 2))]
+    frames = x.unfold(1, flen, step)  # [B, frames, flen]
+    if window is not None:
+        win = _tensor(ctx, window, x.device).to(frames.dtype)
+        if win.shape[0] < flen:
+            # Spec: windows shorter than frame_length are zero-padded.
+            win = F.pad(win, (0, flen - win.shape[0]))
+        frames = frames * win
+    if flen > 4096:
+        spec = (torch.fft.rfft if onesided else torch.fft.fft)(frames.float(), dim=-1)
+        return [torch.stack([spec.real, spec.imag], dim=-1).to(x.dtype)]
+    basis = _dft_basis(flen, bins, x.device)
+    frames = frames.float()
+    if ctx.precision in ("fast", "bf16"):
+        frames = frames.to(torch.bfloat16).float()
+        basis = basis.to(torch.bfloat16).float()
+    out = torch.matmul(frames, basis)
+    return [torch.stack([out[..., :bins], out[..., bins:]], dim=-1).to(x.dtype)]
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_basis(flen: int, bins: int, device: torch.device) -> torch.Tensor:
+    """``[flen, 2*bins]`` float32 cos/sin DFT basis on ``device``, built once
+    (the JAX lowering builds it at trace time)."""
+    ang = (-2.0 * np.pi / flen) * np.outer(np.arange(flen), np.arange(bins))
+    basis = np.concatenate([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+    return torch.from_numpy(basis).to(device)
+
+
+@op("DepthToSpace", fold=True)
+def _depth_to_space(ctx, x):
+    x = _tensor(ctx, x)
+    bs = int(ctx.attr("blocksize"))
+    n, c, h, w = x.shape
+    if _attr_str(ctx, "mode", "DCR") == "DCR":
+        y = x.reshape(n, bs, bs, c // (bs * bs), h, w).permute(0, 3, 4, 1, 5, 2)
+    else:
+        y = x.reshape(n, c // (bs * bs), bs, bs, h, w).permute(0, 1, 4, 2, 5, 3)
+    return [y.reshape(n, c // (bs * bs), h * bs, w * bs)]
+
+
+@op("SpaceToDepth", fold=True)
+def _space_to_depth(ctx, x):
+    x = _tensor(ctx, x)
+    bs = int(ctx.attr("blocksize"))
+    n, c, h, w = x.shape
+    y = x.reshape(n, c, h // bs, bs, w // bs, bs).permute(0, 3, 5, 1, 2, 4)
+    return [y.reshape(n, c * bs * bs, h // bs, w // bs)]
+
+
+# ---------------------------------------------------------------------------
+# bitwise / sequence / norm extensions
+# ---------------------------------------------------------------------------
+
+op("BitwiseNot", fold=True)(_unary(torch.bitwise_not))
+op("BitwiseXor", fold=True)(_binary(operator.xor))
+
+
+@op("BitShift", fold=True)
+def _bitshift(ctx, x, y):
+    direction = _attr_str(ctx, "direction", None)
+    x, y = _promoted(ctx, x, y)
+    if direction == "LEFT":
+        return [torch.bitwise_left_shift(x, y)]
+    if direction == "RIGHT":
+        return [torch.bitwise_right_shift(x, y)]
+    raise ValueError(f"BitShift direction must be LEFT or RIGHT, got {direction!r}")
+
+
+def _one_hot_of_argmax(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """One-hot (x's dtype) of the FIRST maximum along ``axis``."""
+    idx = torch.argmax(x, dim=axis, keepdim=True)
+    shape = [1] * x.ndim
+    shape[axis] = x.shape[axis]
+    return (torch.arange(x.shape[axis], device=x.device).reshape(shape) == idx).to(x.dtype)
+
+
+@op("Hardmax", fold=True)
+def _hardmax(ctx, x):
+    x = _tensor(ctx, x)
+    if ctx.opset >= 13:
+        axis = int(ctx.attr("axis", -1))
+        return [_one_hot_of_argmax(x, axis + x.ndim if axis < 0 else axis)]
+    # opset < 13: coerce to 2-D from axis (as legacy Softmax), one-hot over
+    # the flattened tail.
+    axis = int(ctx.attr("axis", 1))
+    if axis < 0:
+        axis += x.ndim
+    lead = math.prod(x.shape[:axis])
+    return [_one_hot_of_argmax(x.reshape(lead, -1), 1).reshape(x.shape)]
+
+
+@op("LpNormalization", fold=True)
+def _lp_normalization(ctx, x):
+    x = _tensor(ctx, x)
+    axis = int(ctx.attr("axis", -1))
+    p = int(ctx.attr("p", 2))
+    if p == 1:
+        norm = torch.sum(torch.abs(x), dim=axis, keepdim=True)
+    elif p == 2:
+        norm = torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True))
+    else:
+        raise NotImplementedError("LpNormalization requires p in {1, 2}")
+    return [x / norm]
+
+
+def _lp_root(s: torch.Tensor, p: int) -> torch.Tensor:
+    return torch.sqrt(s) if p == 2 else torch.pow(s, 1.0 / p)
+
+
+def _lp_power(x: torch.Tensor, p: int) -> torch.Tensor:
+    return x * x if p == 2 else torch.pow(torch.abs(x), float(p))
+
+
+@op("LpPool", fold=True)
+def _lppool(ctx, x):
+    x = _tensor(ctx, x)
+    kernel, strides, dils, pads, _ = _pool_common(ctx, x)
+    p = int(ctx.attr("p", 2))
+    return [_lp_root(_window_sum(_lp_power(x, p), kernel, strides, dils, pads), p)]
+
+
+@op("GlobalLpPool", fold=True)
+def _global_lppool(ctx, x):
+    x = _tensor(ctx, x)
+    p = int(ctx.attr("p", 2))
+    s = torch.sum(_lp_power(x, p), dim=tuple(range(2, x.ndim)), keepdim=True)
+    return [_lp_root(s, p)]
+
+
+@op("ReverseSequence", fold=True)
+def _reverse_sequence(ctx, x, seq_lens):
+    """The first ``seq_lens[b]`` elements along ``time_axis`` reversed per
+    batch row, the rest passed through; the lengths are data, so the source
+    positions are computed on the device."""
+    x = _tensor(ctx, x, _device_of(ctx, x, seq_lens))
+    batch_axis = int(ctx.attr("batch_axis", 1))
+    time_axis = int(ctx.attr("time_axis", 0))
+    lens = _tensor(ctx, seq_lens, x.device).to(torch.int64)[:, None]
+    t = torch.arange(x.shape[time_axis], device=x.device)[None, :]
+    src = torch.where(t < lens, lens - 1 - t, t)  # [batch, time]
+    xb = x.movedim((batch_axis, time_axis), (0, 1))
+    idx = src.reshape(tuple(src.shape) + (1,) * (xb.ndim - 2)).expand(xb.shape)
+    return [torch.gather(xb, 1, idx).movedim((0, 1), (batch_axis, time_axis))]
+
+
+@op("DFT", fold=True)
+def _dft(ctx, x, dft_length=None, axis=None):
+    """ONNX DFT (opset 17's attribute axis, opset 20's input axis): input
+    ``[batch, d1, ..., dn, c]`` with c = 1 (real) or 2 (real, imag); output
+    of the same rank with c = 2. ``onesided`` halves the transformed axis
+    to ``n // 2 + 1`` (real input, forward only). float32 transforms, as in
+    the JAX lowering."""
+    x = _tensor(ctx, x)
+    inverse = int(ctx.attr("inverse", 0))
+    onesided = int(ctx.attr("onesided", 0))
+    if axis is not None:
+        ax = _static_int(axis, "DFT axis")
+    elif ctx.opset >= 20:
+        ax = -2
+    else:
+        ax = int(ctx.attr("axis", 1))
+    if ax < 0:
+        ax += x.ndim
+    if ax == x.ndim - 1:
+        raise ValueError("DFT axis cannot be the component (last) dimension")
+    comp = x.shape[-1]
+    if comp not in (1, 2):
+        raise ValueError(f"DFT input last dim must be 1 or 2, got {comp}")
+    n = _static_int(dft_length, "DFT dft_length") if dft_length is not None else x.shape[ax]
+    out_dtype = x.dtype if x.is_floating_point() else torch.float32
+    if onesided:
+        if inverse:
+            raise ValueError("DFT onesided=1 with inverse=1 is invalid")
+        if comp == 2:
+            raise NotImplementedError("DFT onesided=1 requires real input")
+        spec = torch.fft.rfft(x[..., 0].float(), n=n, dim=ax)
+    else:
+        sig = x[..., 0].float() if comp == 1 else torch.complex(x[..., 0].float(),
+                                                               x[..., 1].float())
+        spec = (torch.fft.ifft if inverse else torch.fft.fft)(sig, n=n, dim=ax)
+    return [torch.stack([spec.real, spec.imag], dim=-1).to(out_dtype)]

@@ -98,8 +98,25 @@ exits non-zero:
              --no-stream (the batch context) give the same CSV rows; once
              more with the range filter; --list-providers names the card.
 
+13. exported — exporter-written files at full width: a torch module with
+             models/birdnet_v24.py's schedule and a learned log1p(t*t)
+             frontend, written by libtorch's TorchScript exporter (image
+             [N, 1, 96, 511]: B4 under fast), and the TF-export dialect of
+             tests/_tf_dialect_models.py for v2.4 (96 mels, 6522 species),
+             v3.0 (96, 6522, embeddings 1024) and Perch v2 (128, 14795,
+             1536). Per file: fp32 on the card against the file's oracle
+             (the torch module on the card, TF32 off; TfOracle) and against
+             the port on the host; fast against fp32 (top-1 where fp32's
+             winner leads by more than CLEAR_LEAD); predict_batch(32); a 60 s
+             analyze_samples against predict_batch on the same segments (held
+             at fp32, printed at fast); the batch context's graph bitwise against predict_batch; one forward
+             per policy under torch.cuda.set_sync_debug_mode("error"); B4's
+             launches and, in a profiler trace, its expand_dw_mma_kernel on
+             the torch export; rates beside the generator's v2.4 conv file.
+
 Before each driven path (slice, stream, int8, families, the batch
-context's capture, and each server's run) every launch count is set to 0;
+context's capture, each server's run, the exported files) every launch
+count is set to 0;
 the counts are read right after it, and the kernels line sums them. B5, which the JAX package
 reaches only through its public function, counts its kernel phase's calls
 to that function.
@@ -1988,6 +2005,272 @@ def mixed_rates(card: str) -> dict:
     return rates
 
 
+# The exported phase: exporter-written files at full width. (a) a torch
+# module with models/birdnet_v24.py's schedule (learned Conv1d filterbank
+# with log1p(t*t), stem 32, six stages of depth 2, head 1280, 6522 species)
+# written by libtorch's TorchScript exporter; (b) the TF-export dialect of
+# tests/_tf_dialect_models.py (STFT, Mul/ReduceSum power, MelWeightMatrix,
+# NHWC Transpose sandwiches, SAME_UPPER, MaxPool, the Shape/Gather/Concat
+# flatten) at each family's frontend width and species count. fp32 on the
+# card against each file's own oracle within these shares of the logits'
+# scale (the JAX suite's: 1e-4 for the torch export, 5e-4 for the TF
+# dialect), and against the port on the host within EXPORTED_CPU_TOL.
+EXPORTED_ORACLE_TOL = {"torch": 1e-4, "tf": 5e-4}
+EXPORTED_CPU_TOL = 1e-4
+EXPORTED_CPU_ROWS = 4
+EXPORTED_SECONDS = 60
+# (family, mel bins, species, embedding width) of the TF-dialect files; the
+# backbone keeps the fixture's own widths (c1 8, c2 16).
+EXPORTED_TF = {"tf_v24": ("v24", 96, 6522, 24), "tf_v30": ("v30", 96, 6522, 1024),
+               "tf_perch": ("perch", 128, 14795, 1536)}
+
+
+class _SE(torch.nn.Module):
+    """Squeeze-excite as models/_builder.py's se_block: GAP, 1x1, SiLU, 1x1,
+    sigmoid, scale (hidden max(C // 4, 4))."""
+
+    def __init__(self, ch):
+        super().__init__()
+        mid = max(ch // 4, 4)
+        self.fc1, self.fc2 = torch.nn.Conv2d(ch, mid, 1), torch.nn.Conv2d(mid, ch, 1)
+
+    def forward(self, x):
+        g = torch.nn.functional.adaptive_avg_pool2d(x, 1)
+        return x * torch.sigmoid(self.fc2(torch.nn.functional.silu(self.fc1(g))))
+
+
+def _conv_bn_silu(c_in, c_out, k, stride=1, groups=1):
+    return [torch.nn.Conv2d(c_in, c_out, k, stride=stride, padding=k // 2, groups=groups,
+                            bias=False), torch.nn.BatchNorm2d(c_out), torch.nn.SiLU()]
+
+
+class _MBConv(torch.nn.Module):
+    """models/_builder.py's mbconv: a 1x1 expand (also at expand 1), a 3x3
+    depthwise, squeeze-excite, a 1x1 project, the residual where shapes
+    allow."""
+
+    def __init__(self, c_in, c_out, stride, expand):
+        super().__init__()
+        mid = c_in * expand
+        self.body = torch.nn.Sequential(
+            *_conv_bn_silu(c_in, mid, 1), *_conv_bn_silu(mid, mid, 3, stride, mid), _SE(mid),
+            torch.nn.Conv2d(mid, c_out, 1, bias=False), torch.nn.BatchNorm2d(c_out))
+        self.residual = stride == 1 and c_in == c_out
+
+    def forward(self, x):
+        y = self.body(x)
+        return x + y if self.residual else y
+
+
+class TorchBirdnetV24(torch.nn.Module):
+    """BirdNET v2.4's contract and the generator's schedule at full width,
+    with tests/test_external_full_models.py's conv frontend (log1p(t*t)):
+    its image is [N, 1, 96, 511], B4's envelope."""
+
+    STAGES = [(32, 24, 1, 1), (24, 40, 2, 4), (40, 80, 2, 4), (80, 112, 2, 4),
+              (112, 192, 2, 4), (192, 320, 1, 4)]
+
+    def __init__(self, depth=2):
+        super().__init__()
+        self.frontend = torch.nn.Conv1d(1, N_MELS, FLEN, stride=HOP)
+        layers = _conv_bn_silu(1, 32, 3, 2)
+        for c_in, c_out, stride, expand in self.STAGES:
+            layers.append(_MBConv(c_in, c_out, stride, expand))
+            layers += [_MBConv(c_out, c_out, 1, expand) for _ in range(depth - 1)]
+        self.backbone = torch.nn.Sequential(*layers, *_conv_bn_silu(320, 1280, 1))
+        self.classifier = torch.nn.Linear(1280, birdnet_v24.NUM_SPECIES)
+
+    def forward(self, x):
+        t = self.frontend(x.unsqueeze(1))
+        img = torch.log1p(t * t).unsqueeze(1)
+        return self.classifier(self.backbone(img).mean(dim=(2, 3)))
+
+
+def exported_files(tmp: str) -> dict:
+    """{name: (path, labels, oracle, sample rate, samples, family)}: the
+    torch-exported v2.4 and the three TF-dialect files, written from SEED;
+    ``oracle(batch)`` gives the file's outputs as numpy. The helpers come
+    from tests/ by path (they import neither package)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from _tf_dialect_models import build_tf_dialect_model
+    from _torch_export import export_onnx_bytes
+
+    files = {}
+    torch.manual_seed(SEED)
+    module = TorchBirdnetV24().eval()
+    with torch.no_grad():  # BatchNorm statistics away from 0 and 1
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.1, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    path = str(Path(tmp) / "torch_v24.onnx")
+    Path(path).write_bytes(export_onnx_bytes(
+        module, (torch.zeros(1, S),), input_names=["input"], output_names=["output_0"],
+        dynamic_axes={"input": {0: "batch"}}))
+    on_card = module.to(CARD)
+
+    def torch_oracle(batch):
+        with torch.no_grad():
+            return [on_card(torch.from_numpy(batch).to(CARD)).cpu().numpy()]
+
+    files["torch_v24"] = (path, LABELS, torch_oracle, 48_000, S, "v24")
+    for name, (family, n_mels, species, emb) in EXPORTED_TF.items():
+        data, oracle = build_tf_dialect_model(family, num_species=species, seed=SEED,
+                                              n_mels=n_mels, emb_dim=emb)
+        path = str(Path(tmp) / f"{name}.onnx")
+        Path(path).write_bytes(data)
+        del data
+        rate, samples = (48_000, S) if family == "v24" else (FAMILY_RATE, FAMILY_S)
+        files[name] = (path, family_labels(species), oracle.forward, rate, samples, family)
+    return files
+
+
+def exported_logits(family: str, outs: list) -> np.ndarray:
+    return outs[3] if family == "perch" else outs[-1]
+
+
+def stream_against_predict_batch(clf, audio: np.ndarray, stream: tuple) -> dict:
+    """A stream's top-K against predict_batch on the same segments in
+    batches of the stream's tile (tiled_reference)."""
+    conf, idx, _ = stream
+    ref_conf, ref_idx, _ = tiled_reference(clf, audio, clf._streaming_engine().tile)
+    clear = ref_conf[:, 0] - ref_conf[:, 1] > STREAM_CONF_TOL
+    return {"topk_equal": bool(np.array_equal(idx, ref_idx)),
+            "max_conf_diff": float(np.abs(conf - ref_conf).max()),
+            "top1_equal_where_clear":
+                f"{int((idx[clear, 0] == ref_idx[clear, 0]).sum())}/{int(clear.sum())}"}
+
+
+def forward_without_sync(clf, segs: np.ndarray) -> bool:
+    """One forward of ``clf``'s engine on the card under
+    torch.cuda.set_sync_debug_mode("error") (after a warm one): True when
+    nothing in it synchronizes. Only the forward is wrapped."""
+    eng = clf._engine
+    x = torch.from_numpy(segs).to(CARD)
+    eng._forward(eng.params, x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng._forward(eng.params, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return True
+
+
+def phase_exported(card: str, generator_path: str) -> dict:
+    """The exported files on the card: fp32 against each file's oracle and
+    against the port on the host; fast against fp32 (top-1 where clear);
+    predict_batch(32); a 60 s analyze_samples against predict_batch on the
+    same segments, held at fp32 (the same top-K, confidences within
+    STREAM_CONF_TOL) and printed at fast (the stream casts its frames to
+    bf16 before the forward under fast, in both packages, and predict_batch
+    does not: where no fused frontend rounds the input anyway, as in the TF
+    dialect's unfused STFT, the two differ by that rounding); the batch
+    context's graph against predict_batch bit for
+    bit (not for Perch, which neither package's context takes); one forward per policy without a sync; B4's launches and kernels
+    on the torch-exported v2.4 under fast; rates beside the generator's v2.4
+    conv file. Returns the phase's launch counts."""
+    t_phase = time.perf_counter()
+    rates = {}
+    gen = built(generator_path, LABELS, "fast")
+    rng = np.random.default_rng(SEED + 20)
+    gen_segs = (rng.normal(size=(N_SEG, S)) * 0.1).astype(np.float32)
+    gen_ctx = gen.create_batch_context(N_SEG)
+    rates["generator_v24_conv"] = {"predict_batch32": seg_per_s(gen, gen_segs),
+                                   "context": statistics.median(
+                                       context_rates(gen, gen_ctx, gen_segs))}
+    del gen, gen_ctx
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files = exported_files(tmp)
+        build_s = time.perf_counter() - t0
+        # The exported path's run: every count starts at 0 here.
+        reset_launches()
+        failed = []
+        for name, (path, labels, oracle, rate, samples, family) in files.items():
+            segs = (np.random.default_rng(SEED + 21).normal(size=(N_SEG, samples)) * 0.1
+                    ).astype(np.float32)
+            pcm = (np.random.default_rng(SEED + 22).standard_normal(
+                EXPORTED_SECONDS * rate, dtype=np.float32) * 3000).clip(
+                -32768, 32767).astype(np.int16)
+            before = read_launches()
+            fp32, fast = built(path, labels, "fp32"), built(path, labels, "fast")
+            ref = logits_of(fp32.predict_batch(segs))
+            fast_batch = fast.predict_batch(segs)
+            streams = {policy: streamed(c, pcm, 0.0) for policy, c in (("fp32", fp32),
+                                                                         ("fast", fast))}
+            # Perch has no batch context in either package (the reference's
+            # BatchInferenceContext refuses it); its forward is held to the
+            # rest.
+            ctx = None if family == "perch" else fast.create_batch_context(N_SEG)
+            in_ctx = fast_batch if ctx is None else fast.predict_batch_with_context(ctx, segs)
+            no_sync = forward_without_sync(fp32, segs) and forward_without_sync(fast, segs)
+            after = read_launches()
+            host = (Classifier.builder().model_path(path).labels(labels).precision("fp32")
+                    .with_device("cpu").build())
+            host_logits = logits_of(host.predict_batch(segs[:EXPORTED_CPU_ROWS]))
+            del host
+            want = exported_logits(family, oracle(segs))
+            audio = chunk_audio(pcm.astype(np.float32) / 32768.0, samples, 0.0, rate)[0]
+            stream_vs = {policy: stream_against_predict_batch(c, audio, streams[policy])
+                         for policy, c in (("fp32", fp32), ("fast", fast))}
+            fast_logits = logits_of(fast_batch)
+            tol = EXPORTED_ORACLE_TOL[name.split("_")[0]]
+            line = {"phase": "exported", "file": name, "card": card,
+                    "shape": [N_SEG, samples], "species": len(labels),
+                    "ops": sorted({n.op_type for n in import_onnx(path).graph.node}),
+                    "fp32_scaled_diff_vs_oracle": scaled_diff(ref, want),
+                    "oracle_tol": tol,
+                    "fp32_scaled_diff_card_vs_cpu": scaled_diff(ref[:EXPORTED_CPU_ROWS],
+                                                                host_logits),
+                    "top1_fast_vs_fp32": top1_where_clear(fast_logits, ref),
+                    "scaled_logit_diff_fast_vs_fp32": scaled_diff(fast_logits, ref),
+                    "stream_segments": int(streams["fp32"][0].shape[0]),
+                    "stream_vs_predict_batch": stream_vs,
+                    "context_graph": None if ctx is None else ctx.graph is not None,
+                    "context_logits_bitwise_equal": bool(np.array_equal(
+                        logits_of(in_ctx), fast_logits)),
+                    "context_topk_equal": all(
+                        [p.index for p in a.predictions] == [p.index for p in b.predictions]
+                        for a, b in zip(in_ctx, fast_batch)),
+                    "no_sync_in_forward": no_sync,
+                    "launches": {k: after[k] - before[k] for k in after
+                                 if after[k] != before[k]}}
+            if name == "torch_v24":
+                kernels = device_kernel_names(lambda: fast.predict_batch(segs))
+                line["trace_expand_dw_mma_kernel"] = sum(
+                    n for k, n in kernels.items() if "expand_dw_mma_kernel" in k)
+            rates[name] = {"predict_batch32": seg_per_s(fast, segs), "context": None if ctx is None
+                           else statistics.median(context_rates(fast, ctx, segs))}
+            ok = (np.isfinite(ref).all() and ref.shape == (N_SEG, len(labels))
+                  and line["fp32_scaled_diff_vs_oracle"] <= tol
+                  and line["fp32_scaled_diff_card_vs_cpu"] <= EXPORTED_CPU_TOL
+                  and line["top1_fast_vs_fp32"]["ok"]
+                  and line["stream_segments"] == -(-EXPORTED_SECONDS * rate // samples)
+                  and stream_vs["fp32"]["topk_equal"]
+                  and stream_vs["fp32"]["max_conf_diff"] <= STREAM_CONF_TOL
+                  and line["context_graph"] is not False
+                  and line["context_logits_bitwise_equal"]
+                  and line["context_topk_equal"] and no_sync)
+            if name == "torch_v24":
+                ok = ok and (line["launches"].get("stage_stack_forward", 0) > 0
+                             and line["trace_expand_dw_mma_kernel"] > 0)
+            line["ok"] = bool(ok)
+            emit(line)
+            if not ok:
+                failed.append(name)
+            del fp32, fast, ctx
+            torch.cuda.empty_cache()
+        launches = read_launches()
+    emit({"phase": "exported_rates", "card": card, "precision": "fast",
+          "seg_per_s_median": rates, "build_files_s": build_s,
+          "phase_s": time.perf_counter() - t_phase})
+    if failed:
+        raise AssertionError(f"exported files disagree: {failed}")
+    return launches
+
+
 def main_ab() -> int:
     """``--ab``: B4 at the full-width geometry, B5 at int16 step 144000
     (and 72000), the B3 forward sum and predict_batch(32) under mixed, only
@@ -2037,6 +2320,7 @@ def main() -> int:
         path_launches.append(phase_batch_context(smi, paths["conv"], segs))
         path_launches.append(phase_serve(smi, paths["conv"]))
         phase_cli(smi, paths["conv"])
+        path_launches.append(phase_exported(smi, paths["conv"]))
     # Each kernel's launches summed over its paths; B5's from its kernel
     # phase.
     launches = {k: sum(run[k] for run in path_launches) for k in path_launches[0]}

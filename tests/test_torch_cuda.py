@@ -14,6 +14,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_core_cases import BITWISE as CORE_BITWISE  # noqa: E402
+from _torch_core_cases import CASES as CORE_CASES  # noqa: E402
+from _torch_core_cases import model_bytes as core_model_bytes  # noqa: E402
 from _v24_qconv_shapes import v24_qconv_shapes  # noqa: E402
 from birdnet_tpu_torch.compiler._melbank import mel_weight_matrix  # noqa: E402
 from birdnet_tpu_torch.ops.cuda import frontend as fe  # noqa: E402
@@ -614,3 +617,48 @@ def test_server_on_the_card_matches_the_batch_context(dev, tmp_path):
         assert [p.index for p in preds] == [p.index for p in ref.predictions]
         np.testing.assert_allclose([p.confidence for p in preds],
                                    [p.confidence for p in ref.predictions], rtol=0, atol=1e-3)
+
+
+# The ai.onnx core op table (tests/_torch_core_cases.py): every op on the
+# card against the same graph on the host. fp32 with TF32 off: floats within
+# 1e-5 of the output's scale; integers, shapes, TopK and the scatters equal.
+# One forward runs under torch.cuda.set_sync_debug_mode("error") after a
+# warm one (which uploads the host constants once): no lowering reads the
+# card back inside the forward.
+
+
+def _core_outputs(name, device, sync_debug=False):
+    from birdnet_tpu_torch.compiler.importer import import_onnx, make_forward, params_to_torch
+
+    model = import_onnx(core_model_bytes(name), optimize=False)
+    fwd = make_forward(model, "fp32", device)
+    params = params_to_torch(model.params, device)
+    inputs = [torch.from_numpy(np.array(v)).to(device) for v in CORE_CASES[name][1].values()]
+    outs = fwd(params, *inputs)
+    if sync_debug:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = fwd(params, *inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [o.cpu() if isinstance(o, torch.Tensor) else torch.from_numpy(np.asarray(o))
+            for o in outs]
+
+
+@pytest.mark.parametrize("name", sorted(CORE_CASES))
+def test_core_op_on_the_card_matches_the_cpu(dev, name):
+    want = _core_outputs(name, "cpu")
+    got = _core_outputs(name, dev, sync_debug=True)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (g.shape, w.shape, g.dtype, w.dtype)
+        if not w.is_floating_point() or name in CORE_BITWISE:
+            assert torch.equal(g, w) or (w.is_floating_point() and torch.equal(
+                torch.nan_to_num(g), torch.nan_to_num(w))), name
+            continue
+        g64, w64 = g.double(), w.double()
+        assert torch.equal(torch.isnan(g64), torch.isnan(w64))
+        fin = torch.isfinite(w64)
+        scale = max(float(w64[fin].abs().max()) if fin.any() else 0.0, 1e-30)
+        assert float((g64[fin] - w64[fin]).abs().max()) <= 1e-5 * scale, name
