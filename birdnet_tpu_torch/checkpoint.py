@@ -9,9 +9,9 @@ loading skips protobuf tensor materialization and the passes (the
 ONNX → weights "serialized once" conversion of SURVEY §5.4; reference
 analog: the persisted TensorRT engine, src/tensorrt_config.rs:221-267).
 
-The port has no merged-decoder dispatch (ROADMAP A11), so it writes
-``dispatch_inputs`` as the JAX package writes it for a model without one,
-an empty list, and refuses to load a checkpoint whose list is not empty.
+The manifest keeps the model's merged-decoder flag inputs
+(``dispatch_inputs``); a manifest without the key predates it, and loading
+re-detects the flags from the graph, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -47,9 +47,7 @@ def save_checkpoint(model: ImportedModel, path) -> None:
         "output_shapes": model.output_shapes,
         "params": _tensor_meta(model.params),
         "consts": _tensor_meta(model.consts),
-        # The JAX package's merged-decoder flag inputs; the port never
-        # specializes on one (ROADMAP A11).
-        "dispatch_inputs": [],
+        "dispatch_inputs": list(model.dispatch_inputs),
     }
     # The flat p/ and c/ entries are the authoritative weights; the graph's
     # initializer list still holds the PRE-optimization tensors (BN-fold
@@ -118,16 +116,14 @@ def load_checkpoint(path) -> ImportedModel:
         output_names=manifest["output_names"],
         output_shapes=manifest["output_shapes"],
     )
-    # A checkpoint without the key predates it; the JAX package re-detects
-    # the flags from the graph, whose If nodes the port cannot run anyway
-    # (its registry has no If, so make_forward refuses the model).
-    dispatch = list(manifest.get("dispatch_inputs", []))
-    if dispatch:
-        raise NotImplementedError(
-            f"checkpoint specializes on merged-decoder flag input(s) "
-            f"{', '.join(dispatch)}; merged-decoder dispatch is not yet "
-            f"ported to birdnet_tpu_torch (ROADMAP A11)"
-        )
+    # The list round-trips (so an auto_specialize=False opt-out stays one);
+    # a checkpoint without the key re-detects the flags from the graph.
+    if "dispatch_inputs" in manifest:
+        model.dispatch_inputs = list(manifest["dispatch_inputs"])
+    else:
+        from .compiler.importer import _find_dispatch_inputs
+
+        model.dispatch_inputs = _find_dispatch_inputs(graph, model.input_names)
     return model
 
 

@@ -8,8 +8,12 @@ dictionary, and :func:`make_forward` interprets the node list eagerly
 through the op registry in :mod:`birdnet_tpu_torch.compiler.ops`.
 
 Eager tensors are concrete, so there is no trace-time constant fold: a
-lowering that sees only numpy constants answers in numpy. Merged-decoder
-dispatch, frozen inputs and model-local functions are later ports.
+lowering that sees only numpy constants answers in numpy. Model-local
+functions are inlined at import (:mod:`.functions`, a copy of the JAX
+package's); ``freeze_inputs`` turns graph inputs into host constants; a
+merged decoder's flag inputs (``dispatch_inputs``) make
+:func:`make_forward` dispatch on the flags' values to one specialized
+forward per value, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -47,6 +51,11 @@ class ImportedModel:
     input_shapes: List[List[Optional[int]]] = field(default_factory=list)
     output_names: List[str] = field(default_factory=list)
     output_shapes: List[List[Optional[int]]] = field(default_factory=list)
+    # Scalar flag inputs whose only effect is gating ``If`` branches (the
+    # merged-decoder ``use_cache_branch`` pattern). They stay in
+    # ``input_names``; ``make_forward`` dispatches on their values (see
+    # ``_find_dispatch_inputs``).
+    dispatch_inputs: List[str] = field(default_factory=list)
 
     @property
     def num_outputs(self) -> int:
@@ -85,12 +94,24 @@ def split_params(tensors: Dict[str, np.ndarray]):
 
 
 def import_onnx(source: Union[str, bytes, ModelProto],
-                optimize: bool = True) -> ImportedModel:
+                optimize: bool = True,
+                freeze_inputs: Optional[Dict[str, object]] = None,
+                auto_specialize: bool = True) -> ImportedModel:
     """Load an ONNX model from a path, serialized bytes, or ModelProto.
 
     ``optimize`` runs the import-time graph rewrites of
     :mod:`birdnet_tpu_torch.compiler.optimize` (a byte-identical copy of the
-    JAX package's passes)."""
+    JAX package's passes).
+
+    ``freeze_inputs`` maps graph-input names to fixed values: each becomes
+    a host constant (and leaves ``input_names``), so an ``If`` gated on it
+    folds on the host and only its branch runs: a merged decoder frozen to
+    ``use_cache_branch=True`` or ``False`` is the split pair.
+
+    ``auto_specialize`` (default on) records every scalar bool/int input
+    whose only effect is gating ``If`` conditions in ``dispatch_inputs``;
+    ``make_forward`` then dispatches on the flag's value to one
+    specialized forward per value."""
     model_dir = None
     try:
         if isinstance(source, ModelProto):
@@ -110,10 +131,15 @@ def import_onnx(source: Union[str, bytes, ModelProto],
         raise ModelLoadError("model has no graph")
     graph = model.graph
     if model.functions:
-        raise ModelLoadError(
-            "model-local ONNX functions are not yet ported to "
-            "birdnet_tpu_torch"
-        )
+        from .functions import inline_functions
+
+        try:
+            inline_functions(graph, model.functions)
+        except ModelLoadError:
+            raise
+        except Exception as e:  # noqa: BLE001 - malformed function defs in
+            # untrusted bytes surface as load errors, not internal crashes
+            raise ModelLoadError(f"function inlining failed: {e}") from e
     opset = 17
     for imp in model.opset_import:
         if imp.domain in ("", "ai.onnx"):
@@ -151,6 +177,8 @@ def import_onnx(source: Union[str, bytes, ModelProto],
     except Exception as e:  # noqa: BLE001 - any decode failure of untrusted
         # bytes (IndexError/KeyError/Unicode/Overflow/...) is a load error
         raise ModelLoadError(str(e)) from e
+    if freeze_inputs:
+        _freeze_graph_inputs(graph, tensors, freeze_inputs)
     if optimize:
         from .optimize import optimize_graph
 
@@ -178,6 +206,10 @@ def import_onnx(source: Union[str, bytes, ModelProto],
     _validate_ops(imported)
     _validate_outputs(imported)
     _validate_refs(imported)
+    # After the reference check: the flag use analysis is sound only on a
+    # topologically ordered graph.
+    if auto_specialize:
+        imported.dispatch_inputs = _find_dispatch_inputs(graph, input_names)
     return imported
 
 
@@ -216,6 +248,95 @@ def _validate_refs(model: ImportedModel) -> None:
     walk(model.graph, top, "")
 
 
+# Value- (or truthiness-) preserving unary ops through which a dispatch flag
+# may pass on its way to an ``If`` condition; only input 0 is the data path.
+# Cast qualifies only to BOOL: a narrowing integer cast is not
+# truthiness-preserving (int32 256 → uint8 0).
+_DISPATCH_PASSTHROUGH = frozenset(
+    {"Cast", "Identity", "Not", "Squeeze", "Unsqueeze", "Reshape"}
+)
+# Element types a dispatch flag may declare.
+_DISPATCH_ELEM_TYPES = frozenset(
+    {
+        onnx_proto.DataType.BOOL,
+        onnx_proto.DataType.UINT8,
+        onnx_proto.DataType.INT8,
+        onnx_proto.DataType.INT16,
+        onnx_proto.DataType.INT32,
+        onnx_proto.DataType.INT64,
+    }
+)
+
+
+def _find_dispatch_inputs(graph: GraphProto, input_names) -> List[str]:
+    """Merged-decoder flag inputs (birdnet_tpu/compiler/importer.py:331).
+
+    A graph input qualifies when it declares a bool/int element type with
+    an explicit scalar or ``[1]`` shape, and every use of it (across the
+    top graph and all nested subgraphs, through chains of
+    ``_DISPATCH_PASSTHROUGH`` ops) is as the condition of an ``If``, with
+    at least one such ``If``: the outputs then depend only on the flag's
+    truthiness, so one specialized forward per value is exact."""
+    out: List[str] = []
+    for vi in graph.input:
+        if vi.name not in input_names:
+            continue
+        tt = vi.type.tensor_type if vi.type is not None else None
+        if tt is None or tt.elem_type not in _DISPATCH_ELEM_TYPES:
+            continue
+        if tt.shape is None:
+            continue  # no declared shape: cannot prove it is a scalar flag
+        if _static_shape(vi) not in ([], [1]):
+            continue
+        if _flag_only_gates_if(graph, vi.name):
+            out.append(vi.name)
+    return out
+
+
+def _flag_only_gates_if(graph: GraphProto, flag: str) -> bool:
+    """True iff every use of ``flag`` (through passthrough chains, also
+    closure-captured uses inside subgraphs) is an ``If`` condition and at
+    least one ``If`` consumes it. Any other use, any graph or subgraph
+    output exposing a derived value, or a subgraph formal input shadowing
+    one, disqualifies the flag."""
+    derived = {flag}
+    found_if = [False]
+
+    def walk(g: GraphProto) -> bool:
+        if any(vi.name in derived for vi in g.output):
+            return False
+        for node in g.node:
+            used = [
+                i for i, inp in enumerate(node.input) if inp and inp in derived
+            ]
+            if used:
+                ok_passthrough = (
+                    node.op_type in _DISPATCH_PASSTHROUGH and used == [0]
+                )
+                if ok_passthrough and node.op_type == "Cast":
+                    to = node.attrs.get("to")
+                    ok_passthrough = (
+                        to is not None
+                        and int(to) == onnx_proto.DataType.BOOL
+                    )
+                if node.op_type == "If" and used == [0]:
+                    found_if[0] = True
+                elif ok_passthrough:
+                    derived.update(o for o in node.output if o)
+                else:
+                    return False
+            for sub in _node_subgraphs(node):
+                if any(vi.name in derived for vi in sub.input):
+                    return False  # formal input shadows a derived name
+                if not walk(sub):
+                    return False
+        # A passthrough inside this graph may have derived one of its
+        # outputs.
+        return not any(vi.name in derived for vi in g.output)
+
+    return walk(graph) and found_if[0]
+
+
 def _node_subgraphs(node):
     for v in node.attrs.values():
         if isinstance(v, GraphProto):
@@ -224,6 +345,41 @@ def _node_subgraphs(node):
             for item in v:
                 if isinstance(item, GraphProto):
                     yield item
+
+
+def _freeze_graph_inputs(graph, tensors, freeze_inputs) -> None:
+    """Turn named graph inputs into initializer-style constants, cast to
+    the input's declared element type and checked against its static dims
+    (birdnet_tpu/compiler/importer.py:400-437)."""
+    declared = {vi.name: vi for vi in graph.input}
+    for name, value in freeze_inputs.items():
+        if name in tensors:
+            raise ValueError(
+                f"freeze_inputs: {name!r} is an initializer, not a "
+                f"runtime graph input"
+            )
+        vi = declared.get(name)
+        if vi is None:
+            avail = [n for n in declared if n not in tensors]
+            raise ValueError(
+                f"freeze_inputs: {name!r} is not a graph input "
+                f"(inputs: {avail})"
+            )
+        arr = np.asarray(value)
+        tt = vi.type.tensor_type if vi.type is not None else None
+        if tt is not None and tt.elem_type in onnx_proto._DTYPE_TO_NUMPY:
+            arr = arr.astype(onnx_proto._DTYPE_TO_NUMPY[tt.elem_type])
+        want = _static_shape(vi)
+        if arr.ndim == 0 and len(want) == 1 and want[0] in (1, None):
+            arr = arr.reshape(1)  # python scalar for a [1]-shaped flag
+        if len(want) not in (0, arr.ndim) or any(
+            d is not None and d != a for d, a in zip(want, arr.shape)
+        ):
+            raise ValueError(
+                f"freeze_inputs: {name!r} declares shape {want}, got "
+                f"{list(arr.shape)}"
+            )
+        tensors[name] = arr
 
 
 def _static_shape(vi) -> List[Optional[int]]:
@@ -312,15 +468,36 @@ def params_to_torch(params: Dict[str, np.ndarray],
     }
 
 
-def consts_to_device(consts: Dict[str, np.ndarray],
-                     device) -> Dict[str, object]:
+# Inputs that a lowering reads on the host although they are float: the
+# resampling scales and ROI of Resize and Upsample.
+_HOST_FLOAT_INPUTS = {"Resize": (1, 2), "Upsample": (1,)}
+
+
+def _host_float_inputs(graph: GraphProto) -> set:
+    """The names ``graph`` (and its subgraphs) reads at a position of
+    ``_HOST_FLOAT_INPUTS``."""
+    names = set()
+    for node in graph.node:
+        for i in _HOST_FLOAT_INPUTS.get(node.op_type, ()):
+            if i < len(node.input) and node.input[i]:
+                names.add(node.input[i])
+        for sub in _node_subgraphs(node):
+            names |= _host_float_inputs(sub)
+    return names
+
+
+def consts_to_device(consts: Dict[str, np.ndarray], device,
+                     graph: Optional[GraphProto] = None) -> Dict[str, object]:
     """The constants as the interpreter's environment holds them. Float
-    constants with at least one axis (small biases) are operands, never
-    shapes or axes: they move to ``device`` once, not per call. The rest
-    stay host values."""
+    constants with at least one axis (small biases) are operands: they move
+    to ``device`` once, not per call. The rest stay host values, and so do
+    the float constants that ``graph`` reads as Resize/Upsample scales or
+    ROI (shapes of the result, needed on the host)."""
+    keep = _host_float_inputs(graph) if graph is not None else set()
     return {
         name: torch.from_numpy(np.array(arr)).to(device)
-        if np.issubdtype(arr.dtype, np.floating) and arr.ndim else arr
+        if np.issubdtype(arr.dtype, np.floating) and arr.ndim and name not in keep
+        else arr
         for name, arr in consts.items()
     }
 
@@ -341,6 +518,9 @@ def make_forward(model: ImportedModel, precision: str = "fp32",
     for it, ``fp32`` parity with the JAX package's
     ``default_matmul_precision("highest")`` depends on it, and ``mixed``
     keeps full float32 STFT passes.
+
+    A model with ``dispatch_inputs`` gets a dispatching forward with the
+    same signature (see ``_make_dispatching_forward``).
     """
     if precision not in ("fp32", "mixed", "fast", "bf16"):
         raise ValueError(f"unknown precision policy {precision!r}")
@@ -348,9 +528,20 @@ def make_forward(model: ImportedModel, precision: str = "fp32",
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = device_or_default(device)
+    if model.dispatch_inputs:
+        return _make_dispatching_forward(model, precision, device)
+    return _make_plain_forward(model, precision, device)
+
+
+def _make_plain_forward(model: ImportedModel, precision: str, device,
+                        pinned=None):
+    """The forward of one program. ``pinned`` maps input names to host
+    values seeded into the environment instead of taken from ``*inputs``."""
     graph, opset = model.graph, model.opset
-    input_names, output_names = model.input_names, model.output_names
-    consts = consts_to_device(model.consts, device)
+    pinned = dict(pinned) if pinned else {}
+    input_names = [n for n in model.input_names if n not in pinned]
+    output_names = model.output_names
+    consts = consts_to_device(model.consts, device, graph)
 
     def forward(params: Dict[str, torch.Tensor], *inputs):
         if len(inputs) != len(input_names):
@@ -359,9 +550,55 @@ def make_forward(model: ImportedModel, precision: str = "fp32",
             )
         env: Dict[str, object] = dict(consts)
         env.update(params)
+        env.update(pinned)
         env.update(zip(input_names, inputs))
         with torch.inference_mode():
             return interpret_graph(graph, opset, precision, env, output_names,
                                    device)
+
+    return forward
+
+
+def _make_dispatching_forward(model: ImportedModel, precision: str, device):
+    """Call-time dispatch over ``model.dispatch_inputs``
+    (birdnet_tpu/compiler/importer.py:644-695): one specialized forward per
+    observed truthiness of the flags, whose values are pinned as host
+    numpy, so each ``If`` they gate folds on the host and runs one branch.
+
+    A flag given as a host value costs nothing. A flag given as a tensor is
+    read once, here at the forward's entry and outside every lowering: a
+    sync when it lies on the card. (The JAX forward reads a concrete flag
+    too; a traced one takes its single-program path, which the port does
+    not need.)"""
+    flag_names = list(model.dispatch_inputs)
+    flag_idx = [model.input_names.index(n) for n in flag_names]
+    flag_set = frozenset(flag_idx)
+    declared = {vi.name: vi for vi in model.graph.input}
+    cache: Dict[Tuple[bool, ...], object] = {}
+
+    def _canonical(name: str, truth: bool) -> np.ndarray:
+        vi = declared[name]
+        dt = onnx_proto._DTYPE_TO_NUMPY.get(vi.type.tensor_type.elem_type,
+                                            np.dtype(np.bool_))
+        arr = np.asarray(1 if truth else 0, dtype=dt)
+        return arr.reshape(1) if _static_shape(vi) == [1] else arr
+
+    def _truth(flag) -> bool:
+        if isinstance(flag, torch.Tensor):
+            return bool(flag.reshape(-1)[0])
+        return bool(np.asarray(flag).reshape(-1)[0])
+
+    def forward(params: Dict[str, torch.Tensor], *inputs):
+        if len(inputs) != len(model.input_names):
+            raise ValueError(
+                f"model expects {len(model.input_names)} inputs, got "
+                f"{len(inputs)}"
+            )
+        key = tuple(_truth(inputs[i]) for i in flag_idx)
+        fn = cache.get(key)
+        if fn is None:
+            pinned = {n: _canonical(n, t) for n, t in zip(flag_names, key)}
+            fn = cache[key] = _make_plain_forward(model, precision, device, pinned)
+        return fn(params, *(x for i, x in enumerate(inputs) if i not in flag_set))
 
     return forward

@@ -15,12 +15,14 @@ order, so that each lowering stands where its JAX counterpart does:
   ``_QLinearGemm``, ``ConvInteger``, ``MatMulInteger`` and
   ``DynamicQuantizeLinear``;
 - the fused nodes of the import-time passes (the frontends run B1/B2 and
-  the stage prefix runs B4 under ``fast``/``bf16``).
+  the stage prefix runs B4 under ``fast``/``bf16``);
+- control flow (``If``, ``Loop``, ``Scan``), the recurrences (``LSTM``,
+  ``GRU``, ``RNN``), ``Resize``/``Upsample`` and ``Attention``/
+  ``RotaryEmbedding``.
 
-Control flow (If/Loop/Scan), the RNNs, Resize/Upsample, Attention/
-RotaryEmbedding, the JAX package's ``ops_extended.py``/``ops_contrib.py``/
-``ops_ml.py`` and the opset <= 6 importer shims are later ports: a graph
-that uses one fails at import, naming it.
+The JAX package's ``ops_extended.py`` (45 names), ``ops_contrib.py`` (of
+which ``SimplifiedLayerNormalization`` is an ai.onnx name) and ``ops_ml.py``
+are later ports: a graph that uses one fails at import, naming it.
 
 Values in the interpreter's environment are torch tensors (activations and
 float params) or numpy arrays (small constants, shapes, axes). A lowering
@@ -31,9 +33,13 @@ interpreter's trace-time constant fold, so that an exporter's shape chains
 A lowering that meets a tensor moves its numpy operands to that tensor's
 device once per value (``_tensor``), never per call. No lowering reads a
 device tensor back to the host: values the JAX package needs at compile
-time (shapes, axes, pads, ``k``, ``depth``, Range's bounds) must be host
-values, and a device tensor there raises "must be a compile-time
-constant", as a tracer does in JAX.
+time (shapes, axes, pads, ``k``, ``depth``, Range's bounds, Resize's
+scales) must be host values, and a device tensor there raises "must be a
+compile-time constant", as a tracer does in JAX. The one written exception
+is Loop's while form (a data-dependent trip count or condition, the JAX
+lowering's ``lax.while_loop``): it reads its condition on the host once per
+iteration (``HOST_READS``). An If on a tensor condition runs both branches
+and selects, so it reads nothing back.
 
 Dtypes follow the JAX lowering's jax.numpy promotion (``_promoted``), with
 two deliberate differences: ONNX int64 and float64 stay 64-bit (the JAX
@@ -76,6 +82,7 @@ import torch
 import torch.nn.functional as F
 
 from ..onnx.proto import DataType as _DT
+from ..ops.cuda.build import count_launch
 from ..ops.cuda.qconv import EPILOGUE_ACTS as _EPILOGUE_ACTS
 from ..ops.cuda.qconv import qconv1x1_requant
 
@@ -1431,15 +1438,53 @@ def _index(ctx, indices, device, n: int) -> torch.Tensor:
     return torch.where(idx < 0, idx + n, idx)
 
 
+def _take_fill(dtype: torch.dtype):
+    """jnp.take's fill for an out-of-range index: NaN, the lowest signed
+    integer, the highest unsigned one, True."""
+    if dtype.is_floating_point or dtype.is_complex:
+        return math.nan
+    if dtype == torch.bool:
+        return True
+    info = torch.iinfo(dtype)
+    return info.max if dtype in (torch.uint8,) + _WIDE_UNSIGNED else info.min
+
+
+def _checked_index(ctx, indices, device, n: int):
+    """(indices as int64 on ``device``, negative ones counted from ``n``
+    and out-of-range ones replaced by 0; the in-range mask, or None when
+    host indices are all in range). The JAX lowering's jnp.take fills an
+    out-of-range position instead of faulting, and so does the port: a
+    CUDA index kernel would assert on it, e.g. in the untaken branch of an
+    If whose condition is a tensor, where both branches run."""
+    if _is_host(indices):
+        arr = np.asarray(indices).astype(np.int64)
+        arr = np.where(arr < 0, arr + n, arr)
+        ok = (arr >= 0) & (arr < n)
+        if ok.all():
+            return _tensor(ctx, arr, device), None
+        return _tensor(ctx, np.where(ok, arr, 0), device), _tensor(ctx, ok, device)
+    idx = _index(ctx, indices, device, n)
+    ok = (idx >= 0) & (idx < n)
+    return torch.where(ok, idx, torch.zeros_like(idx)), ok
+
+
+def _filled(out: torch.Tensor, ok, shape) -> torch.Tensor:
+    if ok is None:
+        return out
+    fill = torch.full((), _take_fill(out.dtype), dtype=out.dtype, device=out.device)
+    return torch.where(ok.reshape(shape), out, fill)
+
+
 @op("Gather", fold=True)
 def _gather(ctx, x, indices):
     x = _tensor(ctx, x, _device_of(ctx, x, indices))
     axis = int(ctx.attr("axis", 0))
     if axis < 0:
         axis += x.ndim
-    idx = _index(ctx, indices, x.device, x.shape[axis])
+    idx, ok = _checked_index(ctx, indices, x.device, x.shape[axis])
     out = x.index_select(axis, idx.reshape(-1))
-    return [out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape) + tuple(x.shape[axis + 1:]))]
+    out = out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape) + tuple(x.shape[axis + 1:]))
+    return [_filled(out, ok, (1,) * axis + tuple(idx.shape) + (1,) * (x.ndim - axis - 1))]
 
 
 @op("GatherElements", fold=True)
@@ -1448,7 +1493,8 @@ def _gather_elements(ctx, x, indices):
     axis = int(ctx.attr("axis", 0))
     if axis < 0:
         axis += x.ndim
-    return [torch.gather(x, axis, _index(ctx, indices, x.device, x.shape[axis]))]
+    idx, ok = _checked_index(ctx, indices, x.device, x.shape[axis])
+    return [_filled(torch.gather(x, axis, idx), ok, tuple(idx.shape))]
 
 
 @op("GatherND", fold=True)
@@ -1784,8 +1830,283 @@ def _cumsum(ctx, x, axis):
 
 
 # ---------------------------------------------------------------------------
-# misc
+# signal / misc
+#
+# Resize and Upsample (birdnet_tpu/compiler/ops.py:1566-1853). Source
+# coordinates, nearest indices and the per-axis weight matrices are numpy,
+# built on the host from the static shapes and attributes; each reaches the
+# device once per value (``_on_device``), so a forward uploads nothing per
+# call and reads nothing back.
 # ---------------------------------------------------------------------------
+
+
+def _resize_src_coords(d_in: int, d_out: int, scale: float, coord_mode: str) -> np.ndarray:
+    """ONNX Resize output→input coordinate mapping (float, unclamped)."""
+    i = np.arange(d_out, dtype=np.float64)
+    if coord_mode == "half_pixel":
+        return (i + 0.5) / scale - 0.5
+    if coord_mode == "pytorch_half_pixel":
+        return (i + 0.5) / scale - 0.5 if d_out > 1 else np.zeros(d_out)
+    if coord_mode == "asymmetric":
+        return i / scale
+    if coord_mode == "align_corners":
+        return i * ((d_in - 1) / (d_out - 1)) if d_out > 1 else np.zeros(d_out)
+    if coord_mode == "half_pixel_symmetric":
+        adjustment = d_out / (scale * d_in)
+        center = d_in / 2.0
+        offset = center * (1.0 - adjustment)
+        return offset + (i + 0.5) / scale - 0.5
+    raise NotImplementedError(
+        f"Resize coordinate_transformation_mode {coord_mode!r} not supported"
+    )
+
+
+def _resize_nearest_idx(src: np.ndarray, d_in: int, nearest_mode: str) -> np.ndarray:
+    if nearest_mode == "round_prefer_floor":
+        idx = np.ceil(src - 0.5)
+    elif nearest_mode == "round_prefer_ceil":
+        idx = np.floor(src + 0.5)
+    elif nearest_mode == "floor":
+        idx = np.floor(src)
+    elif nearest_mode == "ceil":
+        idx = np.ceil(src)
+    else:
+        raise NotImplementedError(f"Resize nearest_mode {nearest_mode!r} not supported")
+    return np.clip(idx.astype(np.int64), 0, d_in - 1)
+
+
+def _keys_cubic(t, a: float, xp=np):
+    """Keys cubic convolution kernel (ONNX cubic_coeff_a, default -0.75).
+    Branchless, so ``xp`` may be numpy or torch."""
+    at = xp.abs(t)
+    w1 = ((a + 2.0) * at - (a + 3.0)) * at * at + 1.0
+    w2 = (((at - 5.0) * at + 8.0) * at - 4.0) * a
+    return xp.where(at <= 1.0, w1, xp.where(at < 2.0, w2, xp.zeros_like(at)))
+
+
+def _resize_weight_matrix(d_in: int, src: np.ndarray, scale: float,
+                          mode: str, *, antialias: bool,
+                          exclude_outside: bool, cubic_a: float) -> np.ndarray:
+    """[d_out, d_in] resampling weights for one axis, built on the host.
+
+    ``antialias=1`` stretches the kernel by 1/scale on downscale (PIL/torch
+    style, normalized); ``exclude_outside=1`` zeroes taps outside the input
+    and renormalizes; otherwise out-of-range taps clamp to the edge
+    (onnxruntime's exclude_outside=0 behaviour)."""
+    support = 1.0 if mode == "linear" else 2.0
+    kscale = max(1.0, 1.0 / scale) if antialias and scale < 1.0 else 1.0
+    if kscale > 1.0:
+        # Antialias border handling follows PIL/torch: the stretched window
+        # clips to in-bounds taps and renormalizes.
+        exclude_outside = True
+    W = np.zeros((src.size, d_in), np.float64)
+    for i, c in enumerate(src):
+        j0 = int(np.ceil(c - support * kscale))
+        j1 = int(np.floor(c + support * kscale))
+        js = np.arange(j0, j1 + 1)
+        t = (js - c) / kscale
+        if mode == "linear":
+            w = np.maximum(0.0, 1.0 - np.abs(t))
+        else:
+            w = _keys_cubic(t, cubic_a)
+        if exclude_outside:
+            w = w * ((js >= 0) & (js < d_in))
+        total = w.sum()
+        if total != 0.0:
+            w = w / total
+        np.add.at(W[i], np.clip(js, 0, d_in - 1), w)
+    return W.astype(np.float32)
+
+
+def _apply_axis_weights(ctx, x: torch.Tensor, axis: int, W: np.ndarray) -> torch.Tensor:
+    """y[..., i, ...] = sum_j W[i, j] * x[..., j, ...] along ``axis``
+    (float32 product, TF32 off; the original dtype restored)."""
+    orig = x.dtype
+    moved = x.movedim(axis, -1).float()
+    y = torch.matmul(moved, _on_device(np.ascontiguousarray(W.T), x.device))
+    return y.movedim(-1, axis).to(orig)
+
+
+def _resize_axis(ctx, x: torch.Tensor, axis: int, src: np.ndarray, linear: bool,
+                 nearest_mode: str) -> torch.Tensor:
+    """Resample one axis of ``x`` by gathering at source coordinates ``src``."""
+    d_in = x.shape[axis]
+    if not linear:
+        idx = _resize_nearest_idx(src, d_in, nearest_mode)
+        return x.index_select(axis, _on_device(idx, x.device))
+    # Linear: weights use the unclamped fractional offset; taps clamp to the
+    # edge (ONNX Runtime's exclude_outside=0 behaviour).
+    lo_f = np.floor(src)
+    frac = (src - lo_f).astype(np.float32)
+    lo = np.clip(lo_f.astype(np.int64), 0, d_in - 1)
+    hi = np.clip(lo_f.astype(np.int64) + 1, 0, d_in - 1)
+    shape = [1] * x.ndim
+    shape[axis] = src.size
+    w = _on_device(frac.reshape(shape), x.device).to(x.dtype)
+    xl = x.index_select(axis, _on_device(lo, x.device))
+    xh = x.index_select(axis, _on_device(hi, x.device))
+    return xl + (xh - xl) * w
+
+
+def _resize_tf_crop(ctx, x, roi, axes_l, out_shape, mode, nearest_mode):
+    """``tf_crop_and_resize``: the normalized per-axis ROI [start..., end...]
+    selects the crop; outputs whose source coordinate falls outside the
+    input get ``extrapolation_value``. cubic raises, as in the JAX lowering."""
+    if mode == "cubic":
+        raise NotImplementedError("Resize tf_crop_and_resize with mode=cubic")
+    if int(ctx.attr("antialias", 0)) or int(ctx.attr("exclude_outside", 0)):
+        raise NotImplementedError(
+            "Resize tf_crop_and_resize with antialias/exclude_outside"
+        )
+    if roi is None or not _is_host(roi):
+        raise ValueError(
+            "Resize tf_crop_and_resize requires a compile-time-constant roi"
+        )
+    roi_v = np.asarray(roi, dtype=np.float64).reshape(-1)
+    n_ax = len(axes_l)
+    if roi_v.size != 2 * n_ax:
+        raise ValueError(
+            f"Resize roi has {roi_v.size} elements, expected {2 * n_ax}"
+        )
+    extrap = float(ctx.attr("extrapolation_value", 0.0))
+    linear = mode == "linear"
+    any_oob = None  # broadcast [.., d_out, ..] bool over the resampled axes
+    for pos, axis in enumerate(axes_l):
+        d_in = x.shape[axis]
+        d_out = out_shape[axis]
+        start, end = roi_v[pos], roi_v[n_ax + pos]
+        i = np.arange(d_out, dtype=np.float64)
+        if d_out > 1:
+            src = start * (d_in - 1) + i * (end - start) * (d_in - 1) / (
+                d_out - 1
+            )
+        else:
+            src = np.full(1, 0.5 * (start + end) * (d_in - 1))
+        oob = (src < 0.0) | (src > d_in - 1)
+        x = _resize_axis(ctx, x, axis, src, linear, nearest_mode)
+        shape = [1] * x.ndim
+        shape[axis] = d_out
+        oob = oob.reshape(shape)
+        any_oob = oob if any_oob is None else any_oob | oob
+    if any_oob is not None:
+        x = torch.where(_on_device(any_oob, x.device),
+                        torch.full((), extrap, dtype=x.dtype, device=x.device), x)
+    return [x]
+
+
+@op("Resize", fold=True)
+def _resize(ctx, x, roi=None, scales=None, sizes=None):
+    x = _tensor(ctx, x)
+    mode = _attr_str(ctx, "mode", "nearest")
+    if ctx.opset < 11:
+        # Opset-10 Resize has inputs (X, scales) and fixed legacy semantics:
+        # asymmetric coordinates with floor-nearest, like Upsample.
+        scales, roi = roi, None
+        coord_mode = "asymmetric"
+        nearest_mode = "floor"
+    else:
+        coord_mode = _attr_str(ctx, "coordinate_transformation_mode", "half_pixel")
+        nearest_mode = _attr_str(ctx, "nearest_mode", "round_prefer_floor")
+    # Per spec both attributes only affect linear/cubic interpolation.
+    antialias = bool(int(ctx.attr("antialias", 0)))
+    exclude_outside = bool(int(ctx.attr("exclude_outside", 0)))
+    cubic_a = float(ctx.attr("cubic_coeff_a", -0.75))
+
+    policy = _attr_str(ctx, "keep_aspect_ratio_policy", "stretch")
+    if policy not in ("stretch", "not_larger", "not_smaller"):
+        raise NotImplementedError(f"Resize keep_aspect_ratio_policy {policy!r} not supported")
+
+    # Opset-18 axes attribute: scales/sizes apply only to the listed axes.
+    axes_attr = ctx.attr("axes")
+    if axes_attr is not None:
+        axes_l = [int(a) + (x.ndim if int(a) < 0 else 0) for a in axes_attr]
+    else:
+        axes_l = list(range(x.ndim))
+
+    in_shape = list(x.shape)
+    if sizes is not None:
+        sz = _static_ints(sizes, "Resize sizes")
+        out_shape = list(in_shape)
+        if policy != "stretch":
+            # One uniform scale over the listed axes (min for not_larger,
+            # max for not_smaller); targets are then rounded per the spec.
+            ratios = [o / in_shape[ax] for ax, o in zip(axes_l, sz)]
+            uniform = min(ratios) if policy == "not_larger" else max(ratios)
+            for ax in axes_l:
+                out_shape[ax] = int(np.round(uniform * in_shape[ax]))
+        else:
+            for ax, o in zip(axes_l, sz):
+                out_shape[ax] = o
+        # The coordinate transform uses the effective scale d_out/d_in.
+        sc = [o / d for o, d in zip(out_shape, in_shape)]
+    else:
+        sc_sub = list(_static_array(scales, "Resize scales").astype(np.float64).reshape(-1))
+        sc = [1.0] * x.ndim
+        for ax, s in zip(axes_l, sc_sub):
+            sc[ax] = s
+        out_shape = [int(math.floor(d * s)) for d, s in zip(in_shape, sc)]
+
+    if mode not in ("nearest", "linear", "cubic"):
+        raise NotImplementedError(f"Resize mode {mode!r} not supported")
+
+    if coord_mode == "tf_crop_and_resize":
+        return _resize_tf_crop(ctx, x, roi, axes_l, out_shape, mode,
+                               nearest_mode)
+
+    linear = mode == "linear"
+    for axis, (d_out, s) in enumerate(zip(out_shape, sc)):
+        if d_out == x.shape[axis] and abs(s - 1.0) < 1e-12:
+            continue
+        src = _resize_src_coords(x.shape[axis], d_out, float(s), coord_mode)
+        if mode == "cubic" or (
+            linear and (exclude_outside or (antialias and s < 1.0))
+        ):
+            # General path: per-axis weight matrix (spec-exact Keys cubic
+            # with cubic_coeff_a, antialias stretch, exclude_outside).
+            W = _resize_weight_matrix(
+                x.shape[axis], src, float(s), "linear" if linear else "cubic",
+                antialias=antialias, exclude_outside=exclude_outside,
+                cubic_a=cubic_a,
+            )
+            x = _apply_axis_weights(ctx, x, axis, W)
+        else:
+            x = _resize_axis(ctx, x, axis, src, linear, nearest_mode)
+    return [x]
+
+
+@op("Upsample", fold=True)
+def _upsample(ctx, x, scales=None):
+    """Legacy Upsample (deprecated at opset 10): asymmetric coordinates with
+    floor-nearest, as ONNX Runtime implements it. Opsets <= 6 spell the
+    scales as ``height_scale``/``width_scale`` attributes on NCHW images,
+    opset 7 as the ``scales`` attribute, opset 9 as an input."""
+    x = _tensor(ctx, x)
+    mode = _attr_str(ctx, "mode", "nearest")
+    if scales is None:
+        scales = ctx.attr("scales")  # opset 7 spelling: attribute
+    if scales is None and ctx.opset <= 6:
+        h_scale = ctx.attr("height_scale")
+        w_scale = ctx.attr("width_scale")
+        if h_scale is None or w_scale is None:
+            raise ValueError(
+                "Upsample (opset<=6) requires height_scale and "
+                "width_scale attributes"
+            )
+        scales = [1.0, 1.0, float(h_scale), float(w_scale)]
+    if scales is None:
+        raise ValueError("Upsample node carries no scales input or attribute")
+    sc = _static_array(scales, "Upsample scales").astype(np.float64).reshape(-1)
+    linear = mode in ("linear", "bilinear", "trilinear")
+    for axis, s in enumerate(sc):
+        d_in = x.shape[axis]
+        d_out = int(math.floor(d_in * s))
+        if d_out == d_in and s == 1.0:
+            continue
+        # The asymmetric mapping uses the original scale (x_src = x_out / s),
+        # not d_in/d_out: they differ for a fractional d_in * s.
+        src = _resize_src_coords(d_in, d_out, float(s), "asymmetric")
+        x = _resize_axis(ctx, x, axis, src, linear, "floor")
+    return [x]
 
 
 @op("Celu", fold=True)
@@ -2136,13 +2457,20 @@ def _dynamic_quantize_linear(ctx, x):
 
 def _run_subgraph(ctx: OpContext, graph, extra_env=None):
     """Interpret a subgraph with outer-scope capture: the enclosing
-    environment is visible, shadowed by the subgraph's own initializers and
-    ``extra_env``."""
+    environment is visible, shadowed by the subgraph's own initializers
+    (dense and sparse, densified here as the importer densifies the top
+    graph's) and ``extra_env``.
+
+    The JAX package seeds only the dense ones, so a body that reads a
+    sparse initializer passes its import-time reference check and fails
+    when it runs; the port runs it."""
     from .importer import interpret_graph
 
     env = dict(ctx.env)
     for t in graph.initializer:
         env[t.name] = t.to_numpy()
+    for sp in graph.sparse_initializer:
+        env[sp.name] = sp.to_dense()
     if extra_env:
         env.update(extra_env)
     return interpret_graph(
@@ -2288,6 +2616,568 @@ def _fused_stft_frontend(ctx, x):
         eps=float(ctx.attr("eps")),
     )  # [N, M, T], the mel-image orientation
     return [out[:, None]]
+
+
+# ---------------------------------------------------------------------------
+# control flow (birdnet_tpu/compiler/ops.py:2511-2781)
+#
+# A host condition or trip count decides on the host, as a static one does
+# in the JAX lowering. A tensor one stays on the device: If runs both
+# branches and selects with ``torch.where`` (the JAX lowering's
+# ``lax.cond``), and Scan and Loop's for form run their steps in Python
+# (``lax.scan``). The one exception is Loop's while form
+# (``lax.while_loop``): a data-dependent condition or trip count is read on
+# the host once per iteration; ``HOST_READS`` counts those reads.
+# ---------------------------------------------------------------------------
+
+HOST_READS = {"Loop": 0}
+
+
+def _host_truth(v) -> bool:
+    return bool(np.asarray(v).reshape(-1)[0])
+
+
+def _stack(ctx, parts) -> object:
+    """Per-step values stacked on a new leading axis: numpy when every one
+    is a host value, else a tensor."""
+    if all(_is_host(p) for p in parts):
+        return np.stack([np.asarray(p) for p in parts])
+    return torch.stack(_promoted(ctx, *parts))
+
+
+@op("If")
+def _if(ctx, cond):
+    """ONNX If. A host condition picks the branch on the host and only that
+    branch runs. A tensor condition runs both branches and selects each
+    output with ``torch.where`` on the condition: no host read, so a CUDA
+    graph captures it. As with ``lax.cond``, the branches must then give
+    outputs of one shape and dtype; a ValueError names the node otherwise.
+    An op that faults on data its branch's guard excludes must therefore be
+    safe on any data (Gather answers an out-of-range index as jnp.take
+    does)."""
+    if _is_host(cond):
+        branch = (ctx.attr("then_branch") if _host_truth(cond)
+                  else ctx.attr("else_branch"))
+        return list(_run_subgraph(ctx, branch))
+    then_out = _run_subgraph(ctx, ctx.attr("then_branch"))
+    else_out = _run_subgraph(ctx, ctx.attr("else_branch"))
+    pred = cond.reshape(-1)[0].to(torch.bool)
+    outs = []
+    for i, (a, b) in enumerate(zip(then_out, else_out)):
+        a, b = _tensor(ctx, a, cond.device), _tensor(ctx, b, cond.device)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise ValueError(
+                f"If node {ctx.node_name!r}: with a data-dependent condition "
+                f"both branches must give output {i} one shape and dtype, got "
+                f"{tuple(a.shape)} {a.dtype} and {tuple(b.shape)} {b.dtype}"
+            )
+        outs.append(torch.where(pred, a, b))
+    return outs
+
+
+def _loop_while(ctx, body, body_inputs, start_i, cond0, carried, max_trip):
+    """Data-dependent Loop tail, the counterpart of ``lax.while_loop``:
+    before each iteration the condition (and ``i < trip count``) is read on
+    the host, one sync per iteration when it is a tensor on the card. A CUDA
+    graph cannot capture that read. Scan outputs are rejected by the
+    caller, as in the JAX lowering."""
+    n = len(carried)
+    bound = None
+    if max_trip is not None:
+        if _is_host(max_trip):
+            mt = int(np.asarray(max_trip).reshape(()))
+            # Exporters spell a pure `while cond` loop as trip_count =
+            # INT64_MAX (torch.jit.script does): no bound.
+            bound = None if mt >= 2**31 - 1 else mt
+        else:
+            bound = max_trip.reshape(()).to(torch.int64)
+            # A negative runtime bound can only be such a sentinel wrapped
+            # (the JAX lowering's int32 cast): no bound.
+            bound = torch.where(bound < 0, torch.iinfo(torch.int64).max, bound)
+    i, cond = start_i, cond0
+    while True:
+        keep = cond
+        if bound is not None:
+            if _is_host(bound):
+                if i >= bound:
+                    break
+            else:
+                keep = _tensor(ctx, keep, bound.device).reshape(()).to(torch.bool) & (i < bound)
+        if _is_host(keep):
+            go = _host_truth(keep)
+        else:
+            # The one read of a device value inside a lowering (a sync).
+            count_launch(HOST_READS, "Loop")
+            go = bool(keep.reshape(-1)[0])
+        if not go:
+            break
+        extra = dict(zip(body_inputs, [np.int64(i), np.bool_(True)] + carried))
+        outs = _run_subgraph(ctx, body, extra)
+        cond = outs[0]
+        carried = list(outs[1:1 + n])
+        i += 1
+    return carried
+
+
+def _loop_is_for(body) -> bool:
+    """True when the body's cond_out is a passthrough of cond_in (the
+    exporter pattern for a plain ``for i in range(M)``): the loop can
+    never terminate early."""
+    if len(body.input) < 2:
+        return False
+    target = body.output[0].name
+    src = body.input[1].name
+    aliases = {src}
+    for node in body.node:
+        if node.op_type == "Identity" and node.input[0] in aliases:
+            aliases.add(node.output[0])
+    return target in aliases
+
+
+def _loop_scan(ctx, body, body_inputs, m, v_initial, n_carried):
+    """A for-form loop longer than the unroll limit, the counterpart of
+    ``lax.scan``: the ``m`` steps run in Python with no host read, and the
+    scan outputs are stacked."""
+    carried = list(v_initial)
+    scans = []
+    for i in range(m):
+        extra = dict(zip(body_inputs, [np.int64(i), np.bool_(True)] + carried))
+        outs = _run_subgraph(ctx, body, extra)
+        carried = list(outs[1:1 + n_carried])
+        scans.append(outs[1 + n_carried:])
+    return carried + [_stack(ctx, parts) for parts in zip(*scans)]
+
+
+# For-loops at or under this trip count unroll on the host (constants fold
+# per iteration, and bodies with iteration-dependent shapes stay legal);
+# longer ones take the for form (``_loop_scan``).
+_LOOP_UNROLL_LIMIT = 64
+
+
+@op("Loop")
+def _loop(ctx, trip_count=None, cond=None, *v_initial):
+    """ONNX Loop, case for case as the JAX lowering: a host trip count and
+    condition unroll (scan outputs stacked); a for-form body longer than
+    ``_LOOP_UNROLL_LIMIT`` takes ``_loop_scan``; a tensor trip count or
+    condition takes ``_loop_while``, also when a tensor ``cond_out`` turns
+    up mid-unroll. Scan outputs on the while form raise
+    NotImplementedError, as their length is unknowable at compile time in
+    the JAX package.
+
+    Body inputs: (iter_num, cond_in, *carried); outputs: (cond_out,
+    *carried_out, *scan_outputs), scan outputs stacked on a new leading
+    axis."""
+    body = ctx.attr("body")
+    n_carried = len(v_initial)
+    n_scan = ctx.num_outputs - n_carried
+    body_inputs = [vi.name for vi in body.input]
+
+    dynamic = (trip_count is not None and not _is_host(trip_count)) or (
+        cond is not None and not _is_host(cond)
+    )
+    if dynamic:
+        if n_scan > 0:
+            raise NotImplementedError(
+                "Loop with a data-dependent trip count/condition and scan "
+                "outputs (their stacked shape is unknowable at compile time)"
+            )
+        cond0 = cond if cond is not None else np.bool_(True)
+        return _loop_while(
+            ctx, body, body_inputs, 0, cond0, list(v_initial), trip_count
+        )
+
+    if cond is not None and not _host_truth(cond):
+        # Initially-false condition: zero iterations.
+        if n_scan > 0:
+            raise NotImplementedError(
+                "Loop with zero iterations and scan outputs (their shapes "
+                "are unknowable without running the body)"
+            )
+        return list(v_initial)
+    m = (
+        _static_int(trip_count, "Loop trip count")
+        if trip_count is not None
+        else None
+    )
+    if m is not None and m > _LOOP_UNROLL_LIMIT and _loop_is_for(body):
+        if m >= 2**31 - 1:
+            # A for-form body can never terminate early, so an INT64_MAX
+            # trip count is an infinite loop.
+            raise NotImplementedError(
+                f"Loop trip count {m} with a pass-through termination "
+                f"condition is effectively infinite"
+            )
+        return _loop_scan(ctx, body, body_inputs, m, v_initial, n_carried)
+    if m is not None and m > 256:
+        raise NotImplementedError(
+            f"Loop trip count {m} too large to unroll (and the body's "
+            f"termination condition is not a plain for-loop passthrough)"
+        )
+    if m == 0:
+        if n_scan > 0:
+            raise NotImplementedError(
+                "Loop with zero iterations and scan outputs (their shapes "
+                "are unknowable without running the body)"
+            )
+        return list(v_initial)
+
+    carried = list(v_initial)
+    scan_outputs = None
+    i = 0
+    while m is None or i < m:
+        if m is None and i >= 256:
+            raise NotImplementedError(
+                "Loop with no trip count ran >256 statically-true "
+                "iterations at trace time (likely infinite)"
+            )
+        extra = dict(zip(body_inputs, [np.int64(i), np.bool_(True)] + carried))
+        outs = _run_subgraph(ctx, body, extra)
+        # Per the ONNX spec, iteration i's outputs are consumed even when
+        # its cond_out is false (the break applies to iteration i+1).
+        carried = list(outs[1:1 + n_carried])
+        scans = outs[1 + n_carried:]
+        if scan_outputs is None:
+            scan_outputs = [[s] for s in scans]
+        else:
+            for dest, s in zip(scan_outputs, scans):
+                dest.append(s)
+        cond_out = outs[0]
+        if not _is_host(cond_out):
+            # The termination condition turned out data-dependent: the
+            # remaining iterations take the while form.
+            if n_scan > 0:
+                raise NotImplementedError(
+                    "Loop with a data-dependent termination condition and "
+                    "scan outputs"
+                )
+            return _loop_while(
+                ctx, body, body_inputs, i + 1, cond_out, carried, m
+            )
+        if not _host_truth(cond_out):
+            break
+        i += 1
+    return carried + [_stack(ctx, parts) for parts in (scan_outputs or [])]
+
+
+@op("Scan")
+def _scan(ctx, *inputs):
+    """ONNX Scan: a Python loop over the scan axis (the JAX lowering's
+    ``lax.scan``), with ``scan_input_axes``/``directions`` and
+    ``scan_output_axes``/``directions``.
+
+    Node inputs: N initial state values then M scan inputs; body inputs
+    mirror that; body outputs: N state values then K scan outputs."""
+    body = ctx.attr("body")
+    m_scan = int(ctx.attr("num_scan_inputs"))
+    n_state = len(inputs) - m_scan
+    if n_state < 0:
+        raise ValueError("Scan: num_scan_inputs exceeds provided inputs")
+    in_axes = [int(a) for a in ctx.attr("scan_input_axes", [0] * m_scan)]
+    out_axes_attr = ctx.attr("scan_output_axes")
+    in_dirs = [int(d) for d in ctx.attr("scan_input_directions", [0] * m_scan)]
+    out_dirs_attr = ctx.attr("scan_output_directions")
+
+    state = list(inputs[:n_state])
+    xs = []
+    for x, ax, d in zip(inputs[n_state:], in_axes, in_dirs):
+        x = _tensor(ctx, x).movedim(ax, 0)
+        xs.append(x.flip(0) if d else x)
+    steps = xs[0].shape[0] if xs else 0
+    body_input_names = [vi.name for vi in body.input]
+    k_scan_out = len(body.output) - n_state
+    if steps == 0 and k_scan_out:
+        raise NotImplementedError("Scan over zero steps with scan outputs")
+    per_step = []
+    for t in range(steps):
+        extra = dict(zip(body_input_names, state + [x[t] for x in xs]))
+        outs = _run_subgraph(ctx, body, extra)
+        state = list(outs[:n_state])
+        per_step.append(outs[n_state:])
+    results = state
+    out_axes = [int(a) for a in (out_axes_attr or [0] * k_scan_out)]
+    out_dirs = [int(d) for d in (out_dirs_attr or [0] * k_scan_out)]
+    for k, (ax, d) in enumerate(zip(out_axes, out_dirs)):
+        y = _tensor(ctx, _stack(ctx, [s[k] for s in per_step]))
+        if d:
+            y = y.flip(0)
+        results.append(y.movedim(0, ax))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# recurrent ops (LSTM / GRU / RNN; birdnet_tpu/compiler/ops.py:2784-3037)
+#
+# The input projection X·Wᵀ for all time steps is one product under the
+# policy's operand rounding (bf16 operands and float32 sums under mixed,
+# fast and bf16; the JAX lowering's einsum gets bf16 passes from XLA's
+# default precision on the TPU); a Python loop over T then runs the
+# [B, H] × [H, G·H] recurrence in the carry's dtype, both directions of a
+# bidirectional node in one batched product per step. cuDNN's RNN is not
+# used: it has no clip, alpha/beta activations, input_forget or peepholes,
+# and its GRU is only linear_before_reset=1.
+# ---------------------------------------------------------------------------
+
+
+def _rnn_act(name, alpha=None, beta=None):
+    name = name.decode() if isinstance(name, bytes) else str(name)
+    if name == "Sigmoid":
+        return torch.sigmoid
+    if name == "Tanh":
+        return torch.tanh
+    if name == "Relu":
+        return lambda v: torch.clamp(v, min=0.0)
+    if name == "LeakyRelu":
+        a = 0.01 if alpha is None else float(alpha)
+        return lambda v: torch.where(v >= 0, v, a * v)
+    if name == "HardSigmoid":
+        a = 0.2 if alpha is None else float(alpha)
+        bb = 0.5 if beta is None else float(beta)
+        return lambda v: torch.clamp(a * v + bb, 0.0, 1.0)
+    if name == "Elu":
+        a = 1.0 if alpha is None else float(alpha)
+        return lambda v: torch.where(v > 0, v, a * (torch.exp(v) - 1.0))
+    if name == "Softsign":
+        return lambda v: v / (1.0 + torch.abs(v))
+    if name == "Softplus":
+        return lambda v: torch.logaddexp(v, torch.zeros_like(v))
+    if name == "Affine":
+        a = 1.0 if alpha is None else float(alpha)
+        bb = 0.0 if beta is None else float(beta)
+        return lambda v: a * v + bb
+    if name == "ScaledTanh":
+        a = 1.0 if alpha is None else float(alpha)
+        bb = 1.0 if beta is None else float(beta)
+        return lambda v: a * torch.tanh(bb * v)
+    if name == "ThresholdedRelu":
+        a = 1.0 if alpha is None else float(alpha)
+        return lambda v: torch.where(v > a, v, torch.zeros_like(v))
+    raise NotImplementedError(f"RNN activation {name!r} not supported")
+
+
+_RNN_DEFAULT_ACTS = {"LSTM": ("Sigmoid", "Tanh", "Tanh"), "GRU": ("Sigmoid", "Tanh"),
+                     "RNN": ("Tanh",)}
+
+
+def _rnn_acts(ctx, kind: str, dirs: int):
+    """One callable per activation slot, applied to ``[dirs, B, H]``: the
+    same activation on both directions runs once; different ones run per
+    direction."""
+    names = ctx.attr("activations")
+    alphas = ctx.attr("activation_alpha") or []
+    betas = ctx.attr("activation_beta") or []
+    per_dir = len(_RNN_DEFAULT_ACTS[kind])
+    if not names:
+        specs = [[(n, None, None) for n in _RNN_DEFAULT_ACTS[kind]]] * dirs
+    else:
+        per_dir = len(names) // dirs
+        specs = []
+        for d in range(dirs):
+            row = []
+            for k in range(per_dir):
+                i = d * per_dir + k
+                name = names[i].decode() if isinstance(names[i], bytes) else str(names[i])
+                row.append((name, alphas[i] if i < len(alphas) else None,
+                            betas[i] if i < len(betas) else None))
+            specs.append(row)
+    slots = []
+    for k in range(per_dir):
+        fns = [_rnn_act(*specs[d][k]) for d in range(dirs)]
+        if all(specs[d][k] == specs[0][k] for d in range(dirs)):
+            slots.append(fns[0])
+        else:
+            slots.append(lambda v, fns=fns: torch.stack([f(v[d]) for d, f in enumerate(fns)]))
+    return slots
+
+
+def _rnn_prepare(ctx, x, seq_lens):
+    """Shared RNN-family plumbing: (x as [T, B, I], one flag per direction
+    that says whether it runs reversed, the clip as a function)."""
+    if int(ctx.attr("layout", 0)) == 1:  # [B, T, I] → [T, B, I]
+        x = x.transpose(0, 1)
+    direction = _attr_str(ctx, "direction", "forward")
+    dirs = 2 if direction == "bidirectional" else 1
+    if seq_lens is not None and direction != "forward":
+        raise NotImplementedError(
+            "sequence_lens with reverse/bidirectional RNNs"
+        )
+    rev = [direction == "reverse" or d == 1 for d in range(dirs)]
+    clip = ctx.attr("clip")
+    if clip is not None:
+        c = float(clip)
+        pre = lambda g: torch.clamp(g, -c, c)  # noqa: E731
+    else:
+        pre = lambda g: g  # noqa: E731
+    return x, rev, pre
+
+
+def _rnn_init(ctx, v, dirs: int, batch: int, hidden: int, dtype, device):
+    """An initial state as ``[dirs, B, H]`` (layout 0 ``[dirs, B, H]``,
+    layout 1 ``[B, dirs, H]``); zeros when absent."""
+    if v is None:
+        return torch.zeros((dirs, batch, hidden), dtype=dtype, device=device)
+    v = _tensor(ctx, v, device)
+    if int(ctx.attr("layout", 0)) == 1:
+        v = v.transpose(0, 1)
+    return v.to(dtype)
+
+
+def _rnn_scan(xw, step_gates, h0, extra_carry, valid):
+    """Run the recurrence over the input projections ``xw`` ``[D, T, B,
+    G·H]``. ``step_gates(xw_t, h, extra) -> (h_new, new_extra)``; ``valid``
+    (``[T, 1, B, 1]`` bool, or None) freezes the state and zeroes Y past
+    each row's sequence length."""
+    h, ex = h0, extra_carry
+    ys = []
+    for t in range(xw.shape[1]):
+        h_new, ex_new = step_gates(xw[:, t], h, ex)
+        if valid is not None:
+            mask = valid[t]
+            h_new = torch.where(mask, h_new, h)
+            ex_new = tuple(torch.where(mask, n, o) for n, o in zip(ex_new, ex))
+            ys.append(torch.where(mask, h_new, torch.zeros_like(h_new)))
+        else:
+            ys.append(h_new)
+        h, ex = h_new, ex_new
+    return torch.stack(ys, dim=1), h, ex
+
+
+def _rnn_family(ctx, kind, x, w, r, b=None, seq_lens=None,
+                initial_h=None, initial_c=None, p=None):
+    n_gates = {"RNN": 1, "GRU": 3, "LSTM": 4}[kind]
+    x = _tensor(ctx, x)
+    dev = x.device
+    w = _tensor(ctx, w, dev)
+    r = _tensor(ctx, r, dev)
+    hidden = int(ctx.attr("hidden_size", r.shape[-1]))
+    x, rev, pre = _rnn_prepare(ctx, x, seq_lens)
+    dirs = len(rev)
+    steps, batch = x.shape[0], x.shape[1]
+    gh = n_gates * hidden
+
+    # The input projection of every step and direction: [D, T, B, G·H].
+    x_d = torch.stack([x.flip(0) if rv else x for rv in rev])
+    w_t = w.transpose(1, 2)  # [D, I, G·H]
+    if ctx.precision in _BF16_OPERAND_POLICIES and x.is_floating_point():
+        xw = _f32_sum_matmul(x_d.reshape(dirs, steps * batch, -1), w_t)
+    else:
+        xw = torch.matmul(x_d.reshape(dirs, steps * batch, -1), w_t.to(x.dtype))
+    xw = xw.reshape(dirs, steps, batch, gh).to(x.dtype)
+    if b is not None:
+        bd = _tensor(ctx, b, dev)
+        wb, rbias = bd[:, :gh], bd[:, gh:]
+        xw = xw + wb[:, None, None, :]
+    else:
+        rbias = torch.zeros((dirs, gh), dtype=x.dtype, device=dev)
+    # The carry takes the dtype h @ R promotes to (a float32 R lifts a bf16
+    # input), so that every step keeps one dtype.
+    dtype = torch.promote_types(xw.dtype, r.dtype)
+    xw = xw.to(dtype)
+    r_t = r.transpose(1, 2).to(dtype)  # [D, H, G·H]
+    rbias = rbias.to(dtype)[:, None, :]  # [D, 1, G·H]
+    acts = _rnn_acts(ctx, kind, dirs)
+    h0 = _rnn_init(ctx, initial_h, dirs, batch, hidden, dtype, dev)
+    valid = None
+    if seq_lens is not None:
+        lens = _tensor(ctx, seq_lens, dev).reshape(-1).to(torch.int64)
+        t_idx = torch.arange(steps, device=dev)[:, None]
+        valid = (t_idx < lens[None, :]).reshape(steps, 1, batch, 1)
+
+    def split(g):
+        return [g[..., k * hidden:(k + 1) * hidden] for k in range(n_gates)]
+
+    cs = None
+    if kind == "LSTM":
+        f_act, g_act, h_act = acts
+        c0 = _rnn_init(ctx, initial_c, dirs, batch, hidden, dtype, dev)
+        peep = None
+        if p is not None:
+            # Peepholes: P[d] = [Pi, Po, Pf], elementwise against the cell
+            # state inside the activation (and the clip).
+            pd = _tensor(ctx, p, dev).to(dtype)[:, None, :]
+            peep = (pd[..., :hidden], pd[..., hidden:2 * hidden], pd[..., 2 * hidden:])
+        coupled = bool(int(ctx.attr("input_forget", 0)))
+
+        def lstm_gates(xw_t, h, ex):
+            (c,) = ex
+            gi, go, gf, gc = split(xw_t + torch.bmm(h, r_t) + rbias)
+            if peep is not None:
+                gi, gf = gi + peep[0] * c, gf + peep[2] * c
+            i_g = f_act(pre(gi))
+            # input_forget couples the forget gate to the input gate
+            # (f = 1 - i), as onnxruntime computes it.
+            f_g = 1.0 - i_g if coupled else f_act(pre(gf))
+            c_new = f_g * c + i_g * g_act(pre(gc))
+            # Po couples against the new cell state (ONNX equations).
+            if peep is not None:
+                go = go + peep[1] * c_new
+            o_g = f_act(pre(go))
+            return o_g * h_act(c_new), (c_new,)
+
+        ys, h_f, (c_f,) = _rnn_scan(xw, lstm_gates, h0, (c0,), valid)
+        cs = c_f
+    elif kind == "GRU":
+        f_act, g_act = acts
+        lbr = int(ctx.attr("linear_before_reset", 0))
+        # The reset gate couples into the h-gate recurrence: the z and r
+        # columns are one product, the h columns another.
+        r_zr, r_h = r_t[..., :2 * hidden], r_t[..., 2 * hidden:]
+        rb_zr, rb_h = rbias[..., :2 * hidden], rbias[..., 2 * hidden:]
+
+        def gru_gates(xw_t, h, ex):
+            if lbr:
+                rec = torch.bmm(h, r_t) + rbias
+                rec_zr, rec_h = rec[..., :2 * hidden], rec[..., 2 * hidden:]
+            else:
+                rec_zr = torch.bmm(h, r_zr) + rb_zr
+            gz = f_act(pre(xw_t[..., :hidden] + rec_zr[..., :hidden]))
+            gr = f_act(pre(xw_t[..., hidden:2 * hidden] + rec_zr[..., hidden:]))
+            if lbr:
+                gh_ = g_act(pre(xw_t[..., 2 * hidden:] + gr * rec_h))
+            else:
+                gh_ = g_act(pre(xw_t[..., 2 * hidden:] + torch.bmm(gr * h, r_h) + rb_h))
+            return (1 - gz) * gh_ + gz * h, ()
+
+        ys, h_f, _ = _rnn_scan(xw, gru_gates, h0, (), valid)
+    else:  # RNN
+        (act,) = acts
+
+        def rnn_gates(xw_t, h, ex):
+            return act(pre(xw_t + torch.bmm(h, r_t) + rbias)), ()
+
+        ys, h_f, _ = _rnn_scan(xw, rnn_gates, h0, (), valid)
+    if any(rev):
+        ys = torch.stack([y.flip(0) if rv else y for y, rv in zip(ys, rev)])
+    y = ys.transpose(0, 1)  # [T, dirs, B, H]
+    y_h = h_f  # [dirs, B, H]
+    layout = int(ctx.attr("layout", 0))
+    if layout == 1:
+        y = y.permute(2, 0, 1, 3)  # [B, T, dirs, H]
+        y_h = y_h.transpose(0, 1)
+    outs = [y, y_h]
+    if kind == "LSTM":
+        outs.append(cs.transpose(0, 1) if layout == 1 else cs)
+    return outs
+
+
+@op("LSTM")
+def _lstm(ctx, x, w, r, b=None, seq_lens=None, initial_h=None,
+          initial_c=None, p=None):
+    """ONNX LSTM (gate order i, o, f, c), with peepholes (P)."""
+    return _rnn_family(
+        ctx, "LSTM", x, w, r, b, seq_lens, initial_h, initial_c, p
+    )
+
+
+@op("GRU")
+def _gru(ctx, x, w, r, b=None, seq_lens=None, initial_h=None):
+    """ONNX GRU (gate order z, r, h; both linear_before_reset modes)."""
+    return _rnn_family(ctx, "GRU", x, w, r, b, seq_lens, initial_h)
+
+
+@op("RNN")
+def _rnn(ctx, x, w, r, b=None, seq_lens=None, initial_h=None):
+    """ONNX vanilla RNN (one gate, default Tanh)."""
+    return _rnn_family(ctx, "RNN", x, w, r, b, seq_lens, initial_h)
 
 
 # ---------------------------------------------------------------------------
@@ -2546,3 +3436,163 @@ def _dft(ctx, x, dft_length=None, axis=None):
                                                                x[..., 1].float())
         spec = (torch.fft.ifft if inverse else torch.fft.fft)(sig, n=n, dim=ax)
     return [torch.stack([spec.real, spec.imag], dim=-1).to(out_dtype)]
+
+
+# ---------------------------------------------------------------------------
+# attention family (opset 23; birdnet_tpu/compiler/ops.py:3336-3480)
+#
+# Plain torch ops in the JAX lowering's order, not
+# ``scaled_dot_product_attention``: its fused backends round and order the
+# sums differently under bf16, and the chain must be tapped
+# (``qk_matmul_output_mode``).
+# ---------------------------------------------------------------------------
+
+
+def _acc_product(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with the policy's operands (``_mxu_operands``) and the
+    JAX lowering's ``preferred_element_type=_acc_dtype``: float32 sums of
+    bf16 operands under mixed and fast, bf16 under bf16."""
+    if ctx.precision in ("mixed", "fast") and a.is_floating_point() and b.is_floating_point():
+        return _f32_sum_matmul(a, b)
+    a2, b2 = _mxu_operands(ctx, a, b)
+    return torch.matmul(a2, b2)
+
+
+@op("Attention")
+def _attention(ctx, q, k, v, attn_mask=None, past_key=None, past_value=None):
+    """ONNX Attention (opset 23): scaled dot-product attention with an
+    optional mask, causality, GQA, a KV cache and softcap.
+
+    Q/K/V are 4-D [B, heads, seq, head] or 3-D [B, seq, heads*head] (the
+    3-D form needs q_num_heads/kv_num_heads). The order is the ONNX
+    reference's: QK*scale, then the causal/mask bias, softcap, softmax, ·V;
+    ``qk_matmul_output_mode`` 0-3 taps the chain after each step.
+    present_key/present_value are K/V after the cache concat, before any
+    GQA head repetition."""
+    q = _tensor(ctx, q)
+    dev = q.device
+    k = _tensor(ctx, k, dev)
+    v = _tensor(ctx, v, dev)
+    three_d = q.ndim == 3
+    if three_d:
+        qh = ctx.attr("q_num_heads")
+        kvh = ctx.attr("kv_num_heads")
+        if qh is None or kvh is None:
+            raise ValueError(
+                "Attention with 3D inputs requires q_num_heads/kv_num_heads"
+            )
+        qh, kvh = int(qh), int(kvh)
+        b, qs = q.shape[0], q.shape[1]
+        q = q.reshape(b, qs, qh, q.shape[2] // qh).permute(0, 2, 1, 3)
+        k = k.reshape(b, k.shape[1], kvh, k.shape[2] // kvh).permute(0, 2, 1, 3)
+        v = v.reshape(b, v.shape[1], kvh, v.shape[2] // kvh).permute(0, 2, 1, 3)
+    if past_key is not None:
+        k = torch.cat([_tensor(ctx, past_key, dev).to(k.dtype), k], dim=2)
+    if past_value is not None:
+        v = torch.cat([_tensor(ctx, past_value, dev).to(v.dtype), v], dim=2)
+    present_k, present_v = k, v
+    n_q_heads, n_kv_heads = q.shape[1], k.shape[1]
+    if n_q_heads != n_kv_heads:
+        if n_q_heads % n_kv_heads:
+            raise ValueError(
+                f"Attention GQA requires q heads ({n_q_heads}) to be a "
+                f"multiple of kv heads ({n_kv_heads})"
+            )
+        rep = n_q_heads // n_kv_heads
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+
+    scale = ctx.attr("scale")
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    softcap = float(ctx.attr("softcap", 0.0))
+    qk_mode = int(ctx.attr("qk_matmul_output_mode", 0))
+
+    orig = q.dtype
+    scores = _acc_product(ctx, q, k.transpose(-1, -2)) * scale
+    qk_out = scores
+    bias = None
+    if int(ctx.attr("is_causal", 0)):
+        # Upper-left alignment: query row i may attend key columns j <= i.
+        tri = np.tril(np.ones((q.shape[2], k.shape[2]), dtype=bool))
+        bias = _on_device(np.where(tri, 0.0, -np.inf).astype(np.float32), dev).to(scores.dtype)
+    if attn_mask is not None:
+        m = _tensor(ctx, attn_mask, dev)
+        if m.dtype == torch.bool:
+            m = torch.where(m, torch.zeros((), dtype=scores.dtype, device=dev),
+                            torch.full((), -math.inf, dtype=scores.dtype, device=dev))
+        else:
+            m = m.to(scores.dtype)
+        bias = m if bias is None else bias + m
+    if bias is not None:
+        scores = scores + bias
+        if qk_mode == 1:
+            qk_out = scores
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+        if qk_mode == 2:
+            qk_out = scores
+    sp = ctx.attr("softmax_precision")
+    sm_dtype = _ONNX_TO_TORCH[int(sp)] if sp is not None else torch.float32
+    probs = torch.softmax(scores.to(sm_dtype), dim=-1)
+    if qk_mode == 3:
+        qk_out = probs
+    y = _out_cast(ctx, _acc_product(ctx, probs.to(orig), v), orig)
+    if three_d:
+        b, h, s, d = y.shape
+        y = y.permute(0, 2, 1, 3).reshape(b, s, h * d)
+    outs = [y]
+    if ctx.num_outputs > 1:
+        outs.append(present_k)
+    if ctx.num_outputs > 2:
+        outs.append(present_v)
+    if ctx.num_outputs > 3:
+        outs.append(_out_cast(ctx, qk_out, orig))
+    return outs
+
+
+@op("RotaryEmbedding", fold=True)
+def _rotary_embedding(ctx, x, cos_cache, sin_cache, position_ids=None):
+    """ONNX RotaryEmbedding (opset 23).
+
+    X: [B, heads, seq, head] (4-D) or [B, seq, hidden] (3-D, needs
+    num_heads). The caches are [max_pos, rotary_dim/2] with position_ids,
+    else [B, seq, rotary_dim/2]. The first rotary_dim components of each
+    head are rotated; the tail passes through."""
+    x = _tensor(ctx, x)
+    dev = x.device
+    three_d = x.ndim == 3
+    if three_d:
+        nh = ctx.attr("num_heads")
+        if nh is None:
+            raise ValueError("RotaryEmbedding with 3D input requires num_heads")
+        nh = int(nh)
+        b, s, hidden = x.shape
+        x = x.reshape(b, s, nh, hidden // nh).permute(0, 2, 1, 3)
+    cos = _tensor(ctx, cos_cache, dev)
+    sin = _tensor(ctx, sin_cache, dev)
+    if position_ids is not None:
+        pos = _tensor(ctx, position_ids, dev).to(torch.int64)  # [B, S]
+        cos = cos[pos]  # [B, S, rd/2]
+        sin = sin[pos]
+    # Broadcast over heads: [B, 1, S, rd/2].
+    cos = cos[:, None, :, :].to(x.dtype)
+    sin = sin[:, None, :, :].to(x.dtype)
+    head = x.shape[-1]
+    rd = int(ctx.attr("rotary_embedding_dim", 0)) or 2 * cos.shape[-1]
+    rot, tail = x[..., :rd], x[..., rd:]
+    interleaved = int(ctx.attr("interleaved", 0))
+    if interleaved:
+        x1, x2 = rot[..., 0::2], rot[..., 1::2]
+    else:
+        x1, x2 = rot[..., : rd // 2], rot[..., rd // 2:]
+    r1 = x1 * cos - x2 * sin
+    r2 = x1 * sin + x2 * cos
+    if interleaved:
+        rot_out = torch.stack([r1, r2], dim=-1).reshape(rot.shape)
+    else:
+        rot_out = torch.cat([r1, r2], dim=-1)
+    y = torch.cat([rot_out, tail], dim=-1) if rd < head else rot_out
+    if three_d:
+        b, h, s, d = y.shape
+        y = y.permute(0, 2, 1, 3).reshape(b, s, h * d)
+    return [y]

@@ -137,7 +137,8 @@ def _collect_absmax(
     device = device_or_default(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    consts = consts_to_device(model.consts, device)
+    consts = consts_to_device(model.consts, device,
+                              graph if graph is not None else model.graph)
     params = params_to_torch(model.params, device)
     stats: Dict[str, float] = {}
     for batch in calibration:

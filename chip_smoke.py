@@ -113,10 +113,29 @@ exits non-zero:
              per policy under torch.cuda.set_sync_debug_mode("error"); B4's
              launches and, in a profiler trace, its expand_dw_mma_kernel on
              the torch export; rates beside the generator's v2.4 conv file.
+14. control_flow — a CRNN bird tagger at full width (the exported phase's
+             frontend and backbone, image [N, 1, 96, 511]; the mean over
+             frequency, a linear F.interpolate x4 along time (a Resize) to
+             [N, 1280, 64], a 2-layer bidirectional GRU of hidden 128, frame
+             and attention heads over 6522 species and attention pooling),
+             exported by libtorch and built through Classifier.builder():
+             fp32 against the torch module on the card and the port on the
+             host; fast top-1 where clear; the stream at tile 128 against
+             predict_batch (fp32); the batch context bitwise (its graph
+             holds the GRU's step loop); one forward per policy without a
+             sync; B4's launches and trace; rates beside the exported v2.4
+             and ATen ops per forward. Then torch.jit.script control flow
+             (tests/test_random_torch_graphs.py's five _control_flow_net
+             templates at width 1024, batch 32) on the card against the host
+             and torch, the If and for forms without a sync, the while
+             form's host reads counted; the merged-decoder fixture with each
+             flag value and a .btck round trip; and
+             tests/_torch_flow_cases.py's recurrences, Resize, Attention and
+             RotaryEmbedding at realistic shapes, card against host.
 
 Before each driven path (slice, stream, int8, families, the batch
-context's capture, each server's run, the exported files) every launch
-count is set to 0;
+context's capture, each server's run, the exported files, the CRNN) every
+launch count is set to 0;
 the counts are read right after it, and the kernels line sums them. B5, which the JAX package
 reaches only through its public function, counts its kernel phase's calls
 to that function.
@@ -153,6 +172,7 @@ from birdnet_tpu_torch.compiler.importer import (
     consts_to_device,
     import_onnx,
     interpret_graph,
+    make_forward,
     params_to_torch,
 )
 from birdnet_tpu_torch.compiler.ops import OpContext, get_lowering
@@ -168,6 +188,7 @@ from birdnet_tpu_torch.ops.cuda import frontend as fe
 from birdnet_tpu_torch.ops.cuda import qconv as qc
 from birdnet_tpu_torch.ops.cuda import stage_prefix as spx
 from birdnet_tpu_torch.serve import ServeClient, make_server
+from birdnet_tpu_torch.types import ModelType
 from birdnet_tpu_torch.utils.audio_io import read_wav, write_wav
 
 N_SEG, S, HOP, FLEN, N_MELS = 32, 144_000, 280, 1024, 96
@@ -2141,21 +2162,26 @@ def stream_against_predict_batch(clf, audio: np.ndarray, stream: tuple) -> dict:
                 f"{int((idx[clear, 0] == ref_idx[clear, 0]).sum())}/{int(clear.sum())}"}
 
 
+def forward_without_sync_of(fwd, params, inputs) -> bool:
+    """One forward (after a warm one) under
+    torch.cuda.set_sync_debug_mode("error"): True when nothing syncs."""
+    fwd(params, *inputs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fwd(params, *inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return True
+
+
 def forward_without_sync(clf, segs: np.ndarray) -> bool:
     """One forward of ``clf``'s engine on the card under
     torch.cuda.set_sync_debug_mode("error") (after a warm one): True when
     nothing in it synchronizes. Only the forward is wrapped."""
     eng = clf._engine
-    x = torch.from_numpy(segs).to(CARD)
-    eng._forward(eng.params, x)
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        eng._forward(eng.params, x)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    return True
+    return forward_without_sync_of(eng._forward, eng.params, [torch.from_numpy(segs).to(CARD)])
 
 
 def phase_exported(card: str, generator_path: str) -> dict:
@@ -2170,7 +2196,8 @@ def phase_exported(card: str, generator_path: str) -> dict:
     context's graph against predict_batch bit for
     bit (not for Perch, which neither package's context takes); one forward per policy without a sync; B4's launches and kernels
     on the torch-exported v2.4 under fast; rates beside the generator's v2.4
-    conv file. Returns the phase's launch counts."""
+    conv file. Returns the phase's launch counts and the torch-exported
+    v2.4's rates."""
     t_phase = time.perf_counter()
     rates = {}
     gen = built(generator_path, LABELS, "fast")
@@ -2268,6 +2295,347 @@ def phase_exported(card: str, generator_path: str) -> dict:
           "phase_s": time.perf_counter() - t_phase})
     if failed:
         raise AssertionError(f"exported files disagree: {failed}")
+    return launches, rates["torch_v24"]
+
+
+# The control_flow phase.
+CRNN_HIDDEN = 128  # the recurrent width of the DCASE 2023 Task 4 baseline CRNN
+CRNN_UPSAMPLE = 4
+CRNN_STREAM_SECONDS = 600
+CRNN_TILE = 128
+SCRIPTED_WIDTH = 1024
+SCRIPTED_TOL = 1e-4
+
+
+class TorchCrnnV24(torch.nn.Module):
+    """A CRNN bird tagger on v2.4's contract: TorchBirdnetV24's frontend and
+    backbone (head [N, 1280, 3, 16]), the mean over frequency, a linear
+    F.interpolate x4 along time (a Resize) to [N, 1280, 64], a 2-layer
+    bidirectional GRU of hidden 128, frame and attention Linear(256 ->
+    6522), softmax over time and attention pooling (PANNs' decision-level
+    attention): [N, 6522]."""
+
+    def __init__(self, depth=2):
+        super().__init__()
+        base = TorchBirdnetV24(depth)
+        self.frontend, self.backbone = base.frontend, base.backbone
+        self.gru = torch.nn.GRU(1280, CRNN_HIDDEN, num_layers=2, bidirectional=True,
+                                batch_first=True)
+        self.frame = torch.nn.Linear(2 * CRNN_HIDDEN, birdnet_v24.NUM_SPECIES)
+        self.att = torch.nn.Linear(2 * CRNN_HIDDEN, birdnet_v24.NUM_SPECIES)
+
+    def forward(self, x):
+        t = self.frontend(x.unsqueeze(1))
+        img = torch.log1p(t * t).unsqueeze(1)
+        z = self.backbone(img).mean(dim=2)
+        z = torch.nn.functional.interpolate(z, scale_factor=float(CRNN_UPSAMPLE), mode="linear")
+        h, _ = self.gru(z.transpose(1, 2))
+        att = torch.softmax(self.att(h), dim=1)
+        return (self.frame(h) * att).sum(dim=1)
+
+
+# tests/test_random_torch_graphs.py::_control_flow_net's five templates, at
+# SCRIPTED_WIDTH with n = 5; the thresholds are set for this width's data so
+# that each branch and loop does work.
+class ScriptedIf(torch.nn.Module):
+    def __init__(self, d):
+        super().__init__()
+        self.a, self.b, self.t = torch.nn.Linear(d, d), torch.nn.Linear(d, d), 0.0
+
+    def forward(self, x):
+        if x.sum() > self.t:
+            y = torch.tanh(self.a(x))
+        else:
+            y = torch.relu(self.b(x)) - 1.0
+        return y * 2.0
+
+
+class ScriptedFor(torch.nn.Module):
+    def __init__(self, d):
+        super().__init__()
+        self.fc, self.n = torch.nn.Linear(d, d), 5
+
+    def forward(self, x):
+        y = x
+        for _ in range(self.n):
+            y = torch.tanh(self.fc(y)) + x
+        return y
+
+
+class ScriptedWhile(torch.nn.Module):
+    def __init__(self, d):
+        super().__init__()
+        self.n, self.t = 5, 1e5
+
+    def forward(self, x):
+        y = x
+        i = 0
+        while y.abs().sum() < self.t and i < self.n * 3:
+            y = y * 1.5 + 0.1
+            i = i + 1
+        return y
+
+
+class ScriptedIfInFor(torch.nn.Module):
+    def __init__(self, d):
+        super().__init__()
+        self.fc, self.n, self.t = torch.nn.Linear(d, d), 5, 0.0
+
+    def forward(self, x):
+        y = x
+        for _ in range(self.n):
+            if y.mean() > self.t:
+                y = self.fc(y) * 0.5
+            else:
+                y = y + 1.0
+        return y
+
+
+class ScriptedTwoCarried(torch.nn.Module):
+    def __init__(self, d):
+        super().__init__()
+        self.fc, self.n = torch.nn.Linear(d, d), 5
+
+    def forward(self, x):
+        y = x
+        acc = torch.zeros_like(x)
+        for _ in range(self.n):
+            y = torch.sigmoid(self.fc(y))
+            acc = acc + y
+        return acc / float(self.n)
+
+
+SCRIPTED = {"if": (ScriptedIf, 1.0), "for": (ScriptedFor, 1.0),
+            "while": (ScriptedWhile, 1e-4), "if_in_for": (ScriptedIfInFor, 1.0),
+            "two_carried": (ScriptedTwoCarried, 1.0)}
+
+
+def port_forward(data: bytes, device):
+    model = import_onnx(data)
+    return make_forward(model, "fp32", device), params_to_torch(model.params, device)
+
+
+def aten_ops_per_forward(path: str, precision: str) -> dict:
+    """scripts/torch_eager_calls.py's counts for one forward of ``path``
+    on the card at batch 32."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_eager_calls", REPO / "scripts" / "torch_eager_calls.py")
+    calls = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(calls)
+    return calls.count(path, "cuda", precision, N_SEG, S)
+
+
+def crnn_file(tmp: str) -> tuple:
+    """(path, the torch module on the card) of the CRNN, exported from SEED
+    with the exported phase's BatchNorm statistics and a dynamic batch."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from _torch_export import export_onnx_bytes
+
+    torch.manual_seed(SEED)
+    module = TorchCrnnV24().eval()
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.1, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    path = str(Path(tmp) / "crnn_v24.onnx")
+    Path(path).write_bytes(export_onnx_bytes(
+        module, (torch.zeros(1, S),), input_names=["input"], output_names=["output_0"],
+        dynamic_axes={"input": {0: "batch"}}))
+    return path, module.to(CARD)
+
+
+def crnn_check(card: str, path: str, module, v24_rates: dict) -> dict:
+    """The CRNN's checks and rates (the phase's main path). Returns its
+    launch counts."""
+    segs = (np.random.default_rng(SEED + 30).normal(size=(N_SEG, S)) * 0.1).astype(np.float32)
+    pcm = (np.random.default_rng(SEED + 31).standard_normal(CRNN_STREAM_SECONDS * 48_000,
+                                                            dtype=np.float32) * 3000
+           ).clip(-32768, 32767).astype(np.int16)
+    # The CRNN's run: every count starts at 0 here.
+    reset_launches()
+    fp32, fast = built(path, LABELS, "fp32"), built(path, LABELS, "fast")
+    ref = logits_of(fp32.predict_batch(segs))
+    fast_logits = logits_of(fast.predict_batch(segs))
+    for clf in (fp32, fast):
+        clf._streaming_engine().tile = CRNN_TILE
+    stream = streamed(fp32, pcm, 0.0)
+    ctx = fast.create_batch_context(N_SEG)
+    in_ctx = logits_of(fast.predict_batch_with_context(ctx, segs))
+    no_sync = forward_without_sync(fp32, segs) and forward_without_sync(fast, segs)
+    launches = read_launches()
+    kernels = device_kernel_names(lambda: fast.predict_batch(segs))
+    with torch.no_grad():
+        want = module(torch.from_numpy(segs).to(CARD)).cpu().numpy()
+    host = (Classifier.builder().model_path(path).labels(LABELS).precision("fp32")
+            .with_device("cpu").build())
+    host_logits = logits_of(host.predict_batch(segs[:EXPORTED_CPU_ROWS]))
+    del host
+    audio = chunk_audio(pcm.astype(np.float32) / 32768.0, S, 0.0, 48_000)[0]
+    stream_vs = stream_against_predict_batch(fp32, audio, stream)
+    streamed(fast, pcm[:CRNN_TILE * S], 0.0)  # one untimed tile of 128 first
+    rates = {"predict_batch32": seg_per_s(fast, segs),
+             "context": statistics.median(context_rates(fast, ctx, segs)),
+             "stream_tile128": stream_rate(fast, pcm)}
+    ops = sorted({n.op_type for n in import_onnx(path).graph.node})
+    line = {"phase": "control_flow", "part": "crnn", "card": card, "shape": [N_SEG, S],
+            "model_type": fast.model_type.value, "ops": ops,
+            "fp32_scaled_diff_vs_torch": scaled_diff(ref, want),
+            "fp32_scaled_diff_card_vs_cpu": scaled_diff(ref[:EXPORTED_CPU_ROWS], host_logits),
+            "top1_fast_vs_fp32": top1_where_clear(fast_logits, ref),
+            "scaled_logit_diff_fast_vs_fp32": scaled_diff(fast_logits, ref),
+            "stream_segments": int(stream[0].shape[0]), "stream_vs_predict_batch": stream_vs,
+            "context_graph": ctx.graph is not None,
+            "context_logits_bitwise_equal": bool(np.array_equal(in_ctx, fast_logits)),
+            "no_sync_in_forward": no_sync, "launches": launches,
+            "trace_expand_dw_mma_kernel": sum(
+                n for k, n in kernels.items() if "expand_dw_mma_kernel" in k),
+            "seg_per_s_fast": rates, "seg_per_s_fast_exported_v24": v24_rates,
+            "aten_ops_per_forward": {p: aten_ops_per_forward(path, p)
+                                     for p in ("fast", "fp32")}}
+    ok = (np.isfinite(ref).all() and ref.shape == (N_SEG, birdnet_v24.NUM_SPECIES)
+          and fast.model_type is ModelType.BIRDNET_V24
+          and {"GRU", "Resize", "_FusedStagePrefix"} <= set(ops)
+          and line["fp32_scaled_diff_vs_torch"] <= EXPORTED_ORACLE_TOL["torch"]
+          and line["fp32_scaled_diff_card_vs_cpu"] <= EXPORTED_CPU_TOL
+          and line["top1_fast_vs_fp32"]["ok"]
+          and line["stream_segments"] == CRNN_STREAM_SECONDS // 3
+          and stream_vs["topk_equal"] and stream_vs["max_conf_diff"] <= STREAM_CONF_TOL
+          and line["context_graph"] and line["context_logits_bitwise_equal"] and no_sync
+          and launches.get("stage_stack_forward", 0) > 0
+          and line["trace_expand_dw_mma_kernel"] > 0)
+    line["ok"] = bool(ok)
+    emit(line)
+    if not ok:
+        raise AssertionError("control_flow: the CRNN disagrees")
+    return launches
+
+
+def scripted_check(card: str) -> None:
+    """The five scripted templates: the port on the card against the port
+    on the host and torch on the card (fp32, SCRIPTED_TOL of the scale);
+    the If and for forms without a sync; the while form's host reads."""
+    from _torch_export import export_onnx_bytes
+
+    from birdnet_tpu_torch.compiler import ops as tops
+
+    failed = []
+    for i, (name, (cls, x_scale)) in enumerate(SCRIPTED.items()):
+        torch.manual_seed(SEED + 40 + i)
+        module = torch.jit.script(cls(SCRIPTED_WIDTH).eval())
+        x = torch.randn(N_SEG, SCRIPTED_WIDTH) * x_scale
+        data = export_onnx_bytes(module, (x,))
+        with torch.no_grad():
+            want = module.to(CARD)(x.to(CARD)).cpu().numpy()
+        fwd, params = port_forward(data, CARD)
+        tops.HOST_READS["Loop"] = 0
+        (got,) = fwd(params, x.to(CARD))
+        reads = tops.HOST_READS["Loop"]
+        got = got.cpu().numpy()
+        hfwd, hparams = port_forward(data, "cpu")
+        (host,) = hfwd(hparams, x)
+        no_sync = None if name == "while" else forward_without_sync_of(fwd, params,
+                                                                       [x.to(CARD)])
+        line = {"phase": "control_flow", "part": "scripted", "template": name, "card": card,
+                "ops": sorted({n.op_type for n in import_onnx(data).graph.node}),
+                "scaled_diff_vs_torch": scaled_diff(got, want),
+                "scaled_diff_card_vs_cpu": scaled_diff(got, host.numpy()),
+                "no_sync_in_forward": no_sync, "host_reads": reads}
+        ok = (line["scaled_diff_vs_torch"] <= SCRIPTED_TOL
+              and line["scaled_diff_card_vs_cpu"] <= SCRIPTED_TOL
+              and (reads > 1 if name == "while" else reads == 0 and no_sync))
+        line["ok"] = bool(ok)
+        emit(line)
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"control_flow: scripted templates disagree: {failed}")
+
+
+def dispatch_check(card: str, tmp: str) -> None:
+    """The merged decoder (tests/_torch_flow_cases.py) with each flag value,
+    card against host, and through a .btck round trip."""
+    from _torch_flow_cases import merged_decoder_bytes
+
+    from birdnet_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    model = import_onnx(merged_decoder_bytes())
+    ck = str(Path(tmp) / "merged.btck")
+    save_checkpoint(model, ck)
+    back = load_checkpoint(ck)
+    x = torch.randn(2, SCRIPTED_WIDTH, generator=torch.Generator().manual_seed(SEED))
+    past = torch.randn(2, SCRIPTED_WIDTH // 2, generator=torch.Generator().manual_seed(SEED + 1))
+    line = {"phase": "control_flow", "part": "dispatch", "card": card,
+            "dispatch_inputs": model.dispatch_inputs,
+            "btck_dispatch_inputs": back.dispatch_inputs}
+    ok = back.dispatch_inputs == model.dispatch_inputs == ["use_cache_branch"]
+    for flag in (True, False):
+        outs = {}
+        for where, m, dev in (("card", model, CARD), ("host", model, "cpu"),
+                              ("btck_card", back, CARD)):
+            fwd = make_forward(m, "fp32", dev)
+            (y,) = fwd(params_to_torch(m.params, dev), x.to(dev), np.array([flag]),
+                       past.to(dev))
+            outs[where] = y.cpu()
+        want = torch.cat([past, x], 1) if flag else x
+        line[f"flag_{flag}"] = {k: bool(torch.equal(v, want)) for k, v in outs.items()}
+        ok = ok and all(line[f"flag_{flag}"].values())
+    line["ok"] = bool(ok)
+    emit(line)
+    if not ok:
+        raise AssertionError("control_flow: merged-decoder dispatch disagrees")
+
+
+def flow_ops_check(card: str) -> None:
+    """tests/_torch_flow_cases.py on the card against the host: fp32 within
+    its TOL of each output's scale, every case but the while form without a
+    sync, the while form's host reads counted."""
+    import _torch_flow_cases as flow
+
+    from birdnet_tpu_torch.compiler import ops as tops
+
+    cases, failed = {}, []
+    for name in flow.CASES:
+        data = flow.model_bytes(name)
+        inputs = list(flow.CASES[name][1].values())
+        outs = {}
+        for dev in ("cpu", CARD):
+            fwd, params = port_forward(data, dev)
+            args = [torch.from_numpy(np.array(v)).to(dev) for v in inputs]
+            tops.HOST_READS["Loop"] = 0
+            outs[str(dev)] = [o.cpu() for o in fwd(params, *args)]
+        reads = tops.HOST_READS["Loop"]
+        no_sync = None if name == flow.WHILE else forward_without_sync_of(fwd, params, args)
+        err = max(scaled_diff(g.numpy(), w.numpy())
+                  for g, w in zip(outs[str(CARD)], outs["cpu"]))
+        # Device time of a graph replay; the while form cannot be captured.
+        ms = None if name == flow.WHILE else time_ms(lambda: fwd(params, *args), reps=3)
+        cases[name] = {"scaled_diff_card_vs_cpu": err, "no_sync_in_forward": no_sync,
+                       "host_reads": reads, "ms": ms}
+        if not (err <= flow.TOL and (reads == flow.WHILE_STEPS + 1 if name == flow.WHILE
+                                     else reads == 0 and no_sync)):
+            failed.append(name)
+    emit({"phase": "control_flow", "part": "ops", "card": card, "tol": flow.TOL,
+          "cases": cases, "ok": not failed})
+    if failed:
+        raise AssertionError(f"control_flow: ops disagree on the card: {failed}")
+
+
+def phase_control_flow(card: str, v24_rates: dict) -> dict:
+    """The control_flow phase (see the module docstring). Returns the CRNN
+    run's launch counts."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path, module = crnn_file(tmp)
+        launches = crnn_check(card, path, module, v24_rates)
+        del module
+        torch.cuda.empty_cache()
+        scripted_check(card)
+        dispatch_check(card, tmp)
+    flow_ops_check(card)
+    emit({"phase": "control_flow_time", "card": card, "phase_s": time.perf_counter() - t_phase})
     return launches
 
 
@@ -2320,7 +2688,9 @@ def main() -> int:
         path_launches.append(phase_batch_context(smi, paths["conv"], segs))
         path_launches.append(phase_serve(smi, paths["conv"]))
         phase_cli(smi, paths["conv"])
-        path_launches.append(phase_exported(smi, paths["conv"]))
+        exported_launches, v24_rates = phase_exported(smi, paths["conv"])
+        path_launches.append(exported_launches)
+        path_launches.append(phase_control_flow(smi, v24_rates))
     # Each kernel's launches summed over its paths; B5's from its kernel
     # phase.
     launches = {k: sum(run[k] for run in path_launches) for k in path_launches[0]}

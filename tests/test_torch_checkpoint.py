@@ -2,7 +2,7 @@
 against the JAX package's: the same format (version 2, a zip of a manifest,
 the optimized graph and flat raw tensor entries), a file written by either
 package loads in the other with logits within 1e-4, the same manifests, and
-the port's refusal of merged-decoder dispatch (ROADMAP A11)."""
+a merged decoder's ``dispatch_inputs`` kept across the two packages."""
 
 import json
 import zipfile
@@ -125,19 +125,37 @@ def _rewrite_manifest(src, dst, edit):
             zout.writestr(item, data)
 
 
-def test_dispatch_inputs_refused_naming_a11(model_paths, tmp_path):
-    ck = tmp_path / "model.btck"
-    tck.save_checkpoint(import_onnx(model_paths["v24-conv"]), ck)
-    assert json.loads(_entries(ck)["manifest.json"])["dispatch_inputs"] == []
-    flagged = tmp_path / "flagged.btck"
-    _rewrite_manifest(ck, flagged, lambda m: m.update(dispatch_inputs=["use_cache"]))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tck.load_checkpoint(flagged)
+def test_dispatch_inputs_refused_naming_a11(tmp_path):
+    """(Named for what it checked before the port had merged-decoder
+    dispatch.) A checkpoint whose ``dispatch_inputs`` is not empty loads
+    in either package and dispatches: written by the port, the JAX package
+    and the port read the flag list and give the branch each flag value
+    selects; a manifest without the key re-detects the flags."""
+    from test_freeze_inputs import _merged_decoder_like
+
+    from birdnet_tpu.compiler import make_forward as j_make_forward
+    from birdnet_tpu.onnx import proto as jproto
+    from birdnet_tpu_torch.compiler.importer import make_forward, params_to_torch
+
+    data = jproto.encode_model(_merged_decoder_like())
+    ck = tmp_path / "merged.btck"
+    tck.save_checkpoint(import_onnx(data), ck)
+    assert json.loads(_entries(ck)["manifest.json"])["dispatch_inputs"] == ["use_cache_branch"]
     older = tmp_path / "older.btck"
     _rewrite_manifest(ck, older, lambda m: m.pop("dispatch_inputs"))
-    # A manifest from before the key existed loads as a model without one.
-    assert tck.load_checkpoint(older).output_names == \
-        import_onnx(model_paths["v24-conv"]).output_names
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    past = np.arange(8, dtype=np.float32).reshape(2, 4)
+    for path in (ck, older):
+        port, ref = tck.load_checkpoint(path), jck.load_checkpoint(path)
+        assert port.dispatch_inputs == ref.dispatch_inputs == ["use_cache_branch"]
+        fwd = make_forward(port, "fp32", "cpu")
+        jfwd = j_make_forward(ref, precision="fp32")
+        for flag, want in ((True, np.concatenate([past, x], 1)), (False, x)):
+            (y,) = fwd(params_to_torch(port.params, "cpu"), torch.from_numpy(x),
+                       np.array([flag]), torch.from_numpy(past))
+            (jy,) = jfwd(ref.params, x, np.array([flag]), past)
+            np.testing.assert_array_equal(y.numpy(), want)
+            np.testing.assert_array_equal(np.asarray(jy), want)
 
 
 def test_wrong_version_and_bad_zip(model_paths, tmp_path):

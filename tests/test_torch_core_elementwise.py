@@ -17,15 +17,15 @@ from _torch_core_common import (  # noqa: E402
 from birdnet_tpu.onnx import proto as P  # noqa: E402
 
 # The JAX package's ops.py names that the port leaves for later (ROADMAP
-# A11): control flow, the RNNs, Resize/Upsample, the attention family.
-DEFERRED_OPS_PY = {"If", "Loop", "Scan", "LSTM", "GRU", "RNN", "Resize", "Upsample",
-                   "Attention", "RotaryEmbedding"}
+# A11): none since the control flow, the RNNs, Resize/Upsample and the
+# attention family were ported.
+DEFERRED_OPS_PY = set()
 
 
 def test_registry_is_the_ops_py_core_less_the_deferred_names():
     """The port's registry: the names birdnet_tpu/compiler/ops.py registers,
     less the deferred ones, plus ``Scatter`` (ops_extended.py's alias of
-    ScatterElements): 148 names, every one in the JAX registry."""
+    ScatterElements): 158 names, every one in the JAX registry."""
     import re
     from pathlib import Path
 
@@ -39,8 +39,30 @@ def test_registry_is_the_ops_py_core_less_the_deferred_names():
             ops_py.update(re.findall(r'"([A-Za-z_0-9]+)"', line.split(")")[0]))
     port = set(tops.supported_ops())
     assert port == (ops_py - DEFERRED_OPS_PY) | {"Scatter"}
-    assert len(port) == 148
+    assert len(port) == 158
     assert port <= set(jops.supported_ops())
+
+
+def _missing_names():
+    from birdnet_tpu.compiler import ops as jops
+    from birdnet_tpu_torch.compiler import ops as tops
+
+    return sorted(set(jops.supported_ops()) - set(tops.supported_ops()))
+
+
+@pytest.mark.parametrize("name", _missing_names())
+def test_a_missing_name_fails_at_import_naming_it(name):
+    """The 46 names the port still lacks (ROADMAP A11: ops_extended.py's
+    45 and SimplifiedLayerNormalization): a graph that uses one fails at
+    the port's import with a ModelLoadError naming it."""
+    from birdnet_tpu_torch.compiler.importer import import_onnx as t_import
+    from birdnet_tpu_torch.errors import ModelLoadError
+
+    assert len(_missing_names()) == 46
+    data = model_bytes([P.make_node(name, ["x"], ["y"])], {"x": normal((2, 3), 0)}, {},
+                       ["y"], 17)
+    with pytest.raises(ModelLoadError, match=f"unsupported ops: {name}$"):
+        t_import(data, optimize=False)
 
 
 X = normal((2, 3, 4, 5), 0)

@@ -17,6 +17,10 @@ torch = pytest.importorskip("torch")
 from _torch_core_cases import BITWISE as CORE_BITWISE  # noqa: E402
 from _torch_core_cases import CASES as CORE_CASES  # noqa: E402
 from _torch_core_cases import model_bytes as core_model_bytes  # noqa: E402
+from _torch_flow_cases import CASES as FLOW_CASES  # noqa: E402
+from _torch_flow_cases import TOL as FLOW_TOL  # noqa: E402
+from _torch_flow_cases import WHILE, WHILE_STEPS, merged_decoder_bytes  # noqa: E402
+from _torch_flow_cases import model_bytes as flow_model_bytes  # noqa: E402
 from _v24_qconv_shapes import v24_qconv_shapes  # noqa: E402
 from birdnet_tpu_torch.compiler._melbank import mel_weight_matrix  # noqa: E402
 from birdnet_tpu_torch.ops.cuda import frontend as fe  # noqa: E402
@@ -662,3 +666,98 @@ def test_core_op_on_the_card_matches_the_cpu(dev, name):
         fin = torch.isfinite(w64)
         scale = max(float(w64[fin].abs().max()) if fin.any() else 0.0, 1e-30)
         assert float((g64[fin] - w64[fin]).abs().max()) <= 1e-5 * scale, name
+
+
+# Control flow, recurrences, Resize and attention at realistic shapes
+# (tests/_torch_flow_cases.py): each graph on the card against the same
+# graph on the host, fp32 with TF32 off, within 1e-5 of each output's
+# scale. Every case but the while-form Loop runs a forward under
+# torch.cuda.set_sync_debug_mode("error") after a warm one; the while form
+# reads its condition on the host once per iteration, counted.
+
+
+def _flow_outputs(name, device, sync_debug=False):
+    from birdnet_tpu_torch.compiler.importer import import_onnx, make_forward, params_to_torch
+
+    model = import_onnx(flow_model_bytes(name), optimize=False)
+    fwd = make_forward(model, "fp32", device)
+    params = params_to_torch(model.params, device)
+    inputs = [torch.from_numpy(np.array(v)).to(device) for v in FLOW_CASES[name][1].values()]
+    outs = fwd(params, *inputs)
+    if sync_debug:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs = fwd(params, *inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [o.cpu() for o in outs]
+
+
+@pytest.mark.parametrize("name", sorted(FLOW_CASES))
+def test_flow_op_on_the_card_matches_the_cpu(dev, name):
+    from birdnet_tpu_torch.compiler import ops as tops
+
+    want = _flow_outputs(name, "cpu")
+    tops.HOST_READS["Loop"] = 0
+    got = _flow_outputs(name, dev, sync_debug=name != WHILE)
+    assert tops.HOST_READS["Loop"] == (WHILE_STEPS + 1 if name == WHILE else 0)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        scale = max(float(w.abs().max()), 1e-30)
+        assert float((g.double() - w.double()).abs().max()) <= FLOW_TOL * scale, name
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_merged_decoder_dispatch_on_the_card(dev, flag, tmp_path):
+    """The merged decoder on the card: the flag as a host value (no sync
+    in the forward) and as a card tensor (one read at the entry), the
+    branch's answer; a .btck round trip keeps ``dispatch_inputs``."""
+    from birdnet_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from birdnet_tpu_torch.compiler.importer import import_onnx, make_forward, params_to_torch
+
+    model = import_onnx(merged_decoder_bytes())
+    ck = tmp_path / "merged.btck"
+    save_checkpoint(model, ck)
+    back = load_checkpoint(ck)
+    assert back.dispatch_inputs == model.dispatch_inputs == ["use_cache_branch"]
+    x = torch.randn(2, 1024, generator=torch.Generator().manual_seed(0))
+    past = torch.randn(2, 512, generator=torch.Generator().manual_seed(1))
+    want = torch.cat([past, x], 1) if flag else x
+    fwd = make_forward(back, "fp32", dev)
+    params = params_to_torch(back.params, dev)
+    xd, pd = x.to(dev), past.to(dev)
+    fwd(params, xd, np.array([flag]), pd)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (y,) = fwd(params, xd, np.array([flag]), pd)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(y.cpu(), want)
+    (y,) = fwd(params, xd, torch.tensor([flag], device=dev), pd)
+    assert torch.equal(y.cpu(), want)
+
+
+def test_batch_context_refuses_a_while_form_graph(dev, tmp_path):
+    """A while-form Loop reads its condition on the host once per
+    iteration: predict_batch runs it on the card, and the batch context's
+    CUDA graph capture raises InferenceError."""
+    from _torch_flow_cases import while_classifier_bytes
+
+    from birdnet_tpu_torch import Classifier
+    from birdnet_tpu_torch.compiler import ops as tops
+    from birdnet_tpu_torch.errors import InferenceError
+
+    path = tmp_path / "while_v24.onnx"
+    path.write_bytes(while_classifier_bytes(10))
+    clf = (Classifier.builder().model_path(str(path)).labels([f"s{i}" for i in range(10)])
+           .precision("fp32").build())
+    segs = (np.random.default_rng(0).normal(size=(3, 144_000)) * 0.1).astype(np.float32)
+    tops.HOST_READS["Loop"] = 0
+    got = np.stack([r.raw_scores for r in clf.predict_batch(segs)])
+    assert tops.HOST_READS["Loop"] == 3
+    assert np.isfinite(got).all()
+    with pytest.raises(InferenceError, match="capture"):
+        clf.create_batch_context(4)

@@ -187,3 +187,75 @@ def test_tf_dialect_v24_through_the_cli(files, tmp_path, capsys):
         rows[name] = [line for line in out.splitlines() if line.startswith("00:0")]
     assert len(rows["port"]) >= 2
     assert [r.split(" (")[0] for r in rows["port"]] == [r.split(" (")[0] for r in rows["jax"]]
+
+
+class SmallCrnn(torch.nn.Module):
+    """A CRNN bird tagger at small width: test_external_full_models'
+    conv frontend, stem and MBConv blocks, the mean over frequency, an
+    average pool and a linear ``F.interpolate`` x4 along time (a Resize), a
+    2-layer bidirectional GRU of hidden 16, frame and attention heads, and
+    softmax-over-time attention pooling (PANNs' decision-level attention):
+    v2.4's contract, [N, 144000] -> [N, 24]."""
+
+    def __init__(self, n=24, hidden=16):
+        super().__init__()
+        from test_external_full_models import _Backbone
+
+        b = _Backbone()
+        self.frontend, self.stem, self.blocks, self.head = b.frontend, b.stem, b.blocks, b.head
+        self.gru = torch.nn.GRU(32, hidden, num_layers=2, bidirectional=True,
+                                batch_first=True)
+        self.frame = torch.nn.Linear(2 * hidden, n)
+        self.att = torch.nn.Linear(2 * hidden, n)
+
+    def forward(self, x):
+        t = self.frontend(x.unsqueeze(1))
+        img = torch.log1p(t * t).unsqueeze(1)
+        z = self.head(self.blocks(self.stem(img))).mean(dim=2)  # [N, 32, 128]
+        z = torch.nn.functional.avg_pool1d(z, 8)  # [N, 32, 16]
+        z = torch.nn.functional.interpolate(z, scale_factor=4.0, mode="linear")
+        h, _ = self.gru(z.transpose(1, 2))  # [N, 64, 2 * hidden]
+        att = torch.softmax(self.att(h), dim=1)
+        return (self.frame(h) * att).sum(dim=1)
+
+
+@pytest.fixture(scope="module")
+def crnn(tmp_path_factory):
+    from test_external_full_models import _export
+
+    torch.manual_seed(20)
+    module = SmallCrnn().eval()
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.1, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    path = _export(tmp_path_factory.mktemp("crnn"), module, 144_000, 1, "crnn")
+    return path, [f"Genus{i}_Species {i}" for i in range(24)], module
+
+
+@pytest.mark.parametrize("precision,tol", [("fp32", JAX_TOL), ("mixed", 2 ** -7)])
+def test_small_crnn_matches_jax(crnn, precision, tol):
+    """The CRNN through both packages' Classifier on the CPU: detected as
+    v2.4, its graph holding the two GRUs and the Resize; fp32 within 1e-4
+    of the logits' scale of the JAX package (and of the torch module),
+    mixed within 2^-7 of the scale of the JAX package's mixed."""
+    from birdnet_tpu_torch.compiler.importer import import_onnx
+
+    path, labels, module = crnn
+    ops = [n.op_type for n in import_onnx(path).graph.node]
+    assert ops.count("GRU") == 2 and ops.count("Resize") == 1
+    port = (tbt.Classifier.builder().model_path(path).labels(labels).precision(precision)
+            .with_device("cpu").build())
+    ref = jbt.Classifier.builder().model_path(path).labels(labels).precision(precision).build()
+    assert port.model_type is ModelType.BIRDNET_V24
+    assert ref.model_type.value == port.model_type.value
+    batch = _segments("v24", n=3, seed=13)
+    got = np.stack([r.raw_scores for r in port.predict_batch(batch)])
+    want = np.stack([r.raw_scores for r in ref.predict_batch(batch)])
+    scale = float(np.abs(want).max())
+    assert np.abs(got - want).max() <= tol * scale
+    if precision == "fp32":
+        with torch.no_grad():
+            oracle = module(torch.from_numpy(np.stack(batch))).numpy()
+        assert np.abs(got - oracle).max() <= JAX_TOL * float(np.abs(oracle).max())

@@ -226,7 +226,7 @@ def test_shape_ops():
 
 def test_unported_op_names_the_port():
     with pytest.raises(NotImplementedError, match="birdnet_tpu_torch"):
-        tops.get_lowering("LSTM")
+        tops.get_lowering("GridSample")
 
 
 def _run_axes_op(op_type, opset, x, axes_input, attrs, dtype=None):

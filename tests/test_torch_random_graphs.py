@@ -4,8 +4,11 @@ exporter and run through both packages at fp32: the port on the CPU
 against torch eval and against the JAX package's jitted forward, at that
 suite's tolerance.
 
-Twelve fixed seeds over ten grammars. Left out: ``_control_flow_net``,
-whose exports need If and Loop (deferred, ROADMAP A11).
+Seventeen fixed seeds over eleven grammars. ``_control_flow_net``'s five
+templates (If, the static for form, the while form, an If inside a for
+loop, two carried values) each have the first seed of its base that draws
+that template (``pick``): seeds chosen by the template they draw, never by
+whether they pass.
 """
 
 from __future__ import annotations
@@ -33,6 +36,10 @@ SAMPLES = [
     ("_random_index_net", 6000, 1), ("_random_shape_net", 7000, 0),
     ("_random_reduce_net", 8000, 0), ("_random_dtype_net", 9000, 0),
     ("_ast_net", 11000, 0), ("_kv_decode_net", 12000, 0),
+    # _control_flow_net: pick 0, 1, 2, 3, 4 in turn.
+    ("_control_flow_net", 5000, 2), ("_control_flow_net", 5000, 8),
+    ("_control_flow_net", 5000, 4), ("_control_flow_net", 5000, 0),
+    ("_control_flow_net", 5000, 12),
 ]
 
 
