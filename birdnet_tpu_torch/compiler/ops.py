@@ -20,9 +20,15 @@ order, so that each lowering stands where its JAX counterpart does:
   ``GRU``, ``RNN``), ``Resize``/``Upsample`` and ``Attention``/
   ``RotaryEmbedding``.
 
-The JAX package's ``ops_extended.py`` (45 names), ``ops_contrib.py`` (of
-which ``SimplifiedLayerNormalization`` is an ai.onnx name) and ``ops_ml.py``
-are later ports: a graph that uses one fails at import, naming it.
+The long tail of the core (``ops_extended.py``, with
+``SimplifiedLayerNormalization``, the one ai.onnx name of the JAX
+package's ``ops_contrib.py``) registers into this table, and the
+ai.onnx.ml domain (``ops_ml.py``) into the table keyed by (domain, name)
+(``contrib_op``); both are imported at this module's tail. A
+``com.microsoft`` node takes a contrib lowering, or the core one for the
+seven spellings that graduated into the core opset (``_GRADUATED_MS_OPS``).
+The rest of com.microsoft (``ops_contrib.py``) is a later port: a graph
+that uses one of its names fails at import, naming it with its domain.
 
 Values in the interpreter's environment are torch tensors (activations and
 float params) or numpy arrays (small constants, shapes, axes). A lowering
@@ -88,14 +94,22 @@ from ..ops.cuda.qconv import qconv1x1_requant
 
 _REGISTRY: Dict[str, Callable] = {}
 
+# Non-default-domain ops keyed by (domain, op_type): the ai.onnx.ml set of
+# ops_ml.py (birdnet_tpu/compiler/ops.py:35-103).
+_CONTRIB_REGISTRY: Dict[tuple, Callable] = {}
+
+
+def _registered(fn, fold: bool):
+    return _folding(fn) if fold else functools.wraps(fn)(
+        lambda ctx, *args: _checked(fn, ctx, args))
+
 
 def op(*names, fold: bool = False):
     """Register a lowering under ``names``. ``fold``: the lowering answers
     in numpy when every input is a host value (see ``_folding``)."""
 
     def deco(fn):
-        impl = _folding(fn) if fold else functools.wraps(fn)(
-            lambda ctx, *args: _checked(fn, ctx, args))
+        impl = _registered(fn, fold)
         for n in names:
             _REGISTRY[n] = impl
         return impl
@@ -103,8 +117,36 @@ def op(*names, fold: bool = False):
     return deco
 
 
+def contrib_op(domain: str, *names, fold: bool = False):
+    """Register a lowering under ``(domain, name)`` for each of ``names``."""
+
+    def deco(fn):
+        impl = _registered(fn, fold)
+        for n in names:
+            _CONTRIB_REGISTRY[(domain, n)] = impl
+        return impl
+
+    return deco
+
+
+# com.microsoft contrib ops that graduated into the core opset with the
+# same signature: only these fall back to the core table
+# (birdnet_tpu/compiler/ops.py:60-74). A name-based fallback for the rest
+# would mis-dispatch contrib ops whose contract differs from their core
+# namesake (com.microsoft Attention and Unique).
+_GRADUATED_MS_OPS = frozenset(
+    {"Gelu", "LayerNormalization", "Trilu", "Range", "GridSample",
+     "QuantizeLinear", "DequantizeLinear"}
+)
+
+
 def get_lowering(op_type: str, domain: str = "") -> Callable:
-    fn = _REGISTRY.get(op_type) if domain in ("", "ai.onnx") else None
+    if domain in ("", "ai.onnx"):
+        fn = _REGISTRY.get(op_type)
+    else:
+        fn = _CONTRIB_REGISTRY.get((domain, op_type))
+        if fn is None and domain == "com.microsoft" and op_type in _GRADUATED_MS_OPS:
+            fn = _REGISTRY.get(op_type)
     if fn is None:
         name = f"{domain}.{op_type}" if domain else op_type
         raise NotImplementedError(
@@ -116,6 +158,10 @@ def get_lowering(op_type: str, domain: str = "") -> Callable:
 
 def supported_ops() -> List[str]:
     return sorted(_REGISTRY)
+
+
+def supported_contrib_ops() -> List[str]:
+    return sorted(f"{d}.{n}" for d, n in _CONTRIB_REGISTRY)
 
 
 class OpContext:
@@ -136,8 +182,15 @@ class OpContext:
         self.node_name = node_name
         self.num_outputs = num_outputs
         self.env = env if env is not None else {}
+        # Positional output names ("" = omitted): a lowering may skip work
+        # for an output the graph never binds (an ml classifier's labels).
         self.out_names = tuple(out_names)
         self.device = device
+
+    def wants_output(self, position: int) -> bool:
+        if not self.out_names:
+            return True  # unknown: assume needed
+        return position < len(self.out_names) and bool(self.out_names[position])
 
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
@@ -3596,3 +3649,10 @@ def _rotary_embedding(ctx, x, cos_cache, sin_cache, position_ids=None):
         b, h, s, d = y.shape
         y = y.permute(0, 2, 1, 3).reshape(b, s, h * d)
     return [y]
+
+
+# The long tail of the ai.onnx core (ops_extended.py) and the ai.onnx.ml
+# domain (ops_ml.py) register themselves on import; they import helpers
+# from here, so this stays at the module's tail.
+from . import ops_extended  # noqa: E402,F401  (registration side effect)
+from . import ops_ml  # noqa: E402,F401  (ai.onnx.ml classical-ML domain)

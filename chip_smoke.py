@@ -132,9 +132,32 @@ exits non-zero:
              flag value and a .btck round trip; and
              tests/_torch_flow_cases.py's recurrences, Resize, Attention and
              RotaryEmbedding at realistic shapes, card against host.
+15. op_sets — the long tail of ai.onnx and the ai.onnx.ml domain: (a) the
+             exported phase's backbone (image [N, 1, 96, 511]: B4 under fast)
+             with a scripted head that splits the [N, 1280, 3, 16] map into
+             four time chunks (SplitToSequence, a Loop over the sequence,
+             ConcatFromSequence), pools and projects each over 6522 species
+             and averages them, through Classifier.builder(): fp32 against
+             the torch module on the card and the port on the host, fast
+             top-1 where clear, the batch context bitwise, one forward per
+             policy without a sync, B4's launches; (b)
+             tests/_torch_opset_cases.py's ops at realistic shapes (GridSample
+             bilinear and bicubic and AffineGrid on [32, 1, 96, 511],
+             RoiAlign and MaxRoiPool with 300 boxes over [32, 1280, 3, 16],
+             DeformConv on [32, 64, 48, 256], Col2Im as overlap-add, the
+             losses over [32, 6522], the RMS normalizations on [32, 64,
+             1024], MeanVarianceNormalization, a TensorScatter KV-cache
+             write into [32, 8, 1024, 64], Det of [4096, 3, 3], the random
+             ops bit for bit and repeatable), card against host with each
+             op's device ms; (c) its ai.onnx.ml heads (linear, RBF SVM with
+             Platt coupling, a 100-tree forest, a TreeEnsemble regressor) on
+             one hour of full-width v3.0 and Perch embeddings, card against
+             host, the linear head against numpy, no sync in any head's
+             forward, device ms per head and the SVM's launches per forward.
 
 Before each driven path (slice, stream, int8, families, the batch
-context's capture, each server's run, the exported files, the CRNN) every
+context's capture, each server's run, the exported files, the CRNN, the
+sequence head) every
 launch count is set to 0;
 the counts are read right after it, and the kernels line sums them. B5, which the JAX package
 reaches only through its public function, counts its kernel phase's calls
@@ -2639,6 +2662,258 @@ def phase_control_flow(card: str, v24_rates: dict) -> dict:
     return launches
 
 
+# The op_sets phase.
+SEQ_HEAD_CHUNK = 4  # frames of the [N, 1280, 3, 16] map per chunk: four chunks
+OPSET_HOST_ROWS = 4
+# Batch-separable cases whose host reference runs the first OPSET_HOST_ROWS
+# rows (the card runs all 32): the host's CPU takes seconds for each.
+OPSET_HOST_SLICED = ("GridSample_bilinear", "GridSample_bicubic", "AffineGrid_GridSample",
+                     "DeformConv")
+ML_HEAD_SEED = SEED + 60
+ML_TOL = 1e-5
+
+
+@torch.jit.script
+def _chunk_head(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The sequence head: the map split along time into chunks, each pooled
+    and projected, the chunks' logits stacked and averaged. Scripted, so
+    libtorch writes the split as SplitToSequence and the loop over the
+    chunks as a Loop over that sequence."""
+    parts = torch.split(h, chunk, dim=3)
+    outs = [torch.nn.functional.linear(p.mean(dim=(2, 3)), w, b) for p in parts]
+    return torch.stack(outs, 0).mean(0)
+
+
+class TorchSeqHeadV24(torch.nn.Module):
+    """TorchBirdnetV24's frontend and backbone (head [N, 1280, 3, 16]) with
+    a scripted head over four time chunks: [N, 6522]."""
+
+    def __init__(self, depth=2):
+        super().__init__()
+        base = TorchBirdnetV24(depth)
+        self.frontend, self.backbone = base.frontend, base.backbone
+        self.proj = torch.nn.Linear(1280, birdnet_v24.NUM_SPECIES)
+
+    def forward(self, x):
+        t = self.frontend(x.unsqueeze(1))
+        img = torch.log1p(t * t).unsqueeze(1)
+        return _chunk_head(self.backbone(img), self.proj.weight, self.proj.bias,
+                           SEQ_HEAD_CHUNK)
+
+
+def graph_op_types(graph) -> set:
+    """The op types of ``graph`` and of every subgraph in it."""
+    ops = set()
+    for node in graph.node:
+        ops.add(node.op_type)
+        for v in node.attrs.values():
+            if isinstance(v, P.GraphProto):
+                ops |= graph_op_types(v)
+    return ops
+
+
+def seq_head_check(card: str, tmp: str) -> dict:
+    """(a) The sequence head on the exported backbone through
+    Classifier.builder(), held as the control_flow phase holds the CRNN.
+    Returns its launch counts."""
+    from _torch_export import export_onnx_bytes
+
+    torch.manual_seed(SEED + 50)
+    module = TorchSeqHeadV24().eval()
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.1, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    path = str(Path(tmp) / "seq_head_v24.onnx")
+    written = P.decode_model(export_onnx_bytes(
+        module, (torch.zeros(1, S),), input_names=["input"], output_names=["output_0"],
+        dynamic_axes={"input": {0: "batch"}}))
+    # libtorch's shape inference stops at the Loop and leaves the output's
+    # axes symbolic; the classifier reads the species count from the last
+    # one, so the file declares it (the graph stays as libtorch wrote it).
+    written.graph.output[0].type.tensor_type.shape.dim[-1] = P.Dimension(
+        dim_value=birdnet_v24.NUM_SPECIES)
+    P.save_model(written, path)
+    module = module.to(CARD)
+    segs = (np.random.default_rng(SEED + 51).normal(size=(N_SEG, S)) * 0.1).astype(np.float32)
+    # The sequence head's run: every count starts at 0 here.
+    reset_launches()
+    fp32, fast = built(path, LABELS, "fp32"), built(path, LABELS, "fast")
+    ref = logits_of(fp32.predict_batch(segs))
+    fast_logits = logits_of(fast.predict_batch(segs))
+    ctx = fast.create_batch_context(N_SEG)
+    in_ctx = logits_of(fast.predict_batch_with_context(ctx, segs))
+    no_sync = forward_without_sync(fp32, segs) and forward_without_sync(fast, segs)
+    launches = read_launches()
+    with torch.no_grad():
+        want = module(torch.from_numpy(segs).to(CARD)).cpu().numpy()
+    host = (Classifier.builder().model_path(path).labels(LABELS).precision("fp32")
+            .with_device("cpu").build())
+    host_logits = logits_of(host.predict_batch(segs[:EXPORTED_CPU_ROWS]))
+    del host
+    ops = graph_op_types(import_onnx(path).graph)
+    rates = {"predict_batch32": seg_per_s(fast, segs),
+             "context": statistics.median(context_rates(fast, ctx, segs))}
+    line = {"phase": "op_sets", "part": "sequence_head", "card": card, "shape": [N_SEG, S],
+            "model_type": fast.model_type.value, "ops": sorted(ops),
+            "fp32_scaled_diff_vs_torch": scaled_diff(ref, want),
+            "fp32_scaled_diff_card_vs_cpu": scaled_diff(ref[:EXPORTED_CPU_ROWS], host_logits),
+            "top1_fast_vs_fp32": top1_where_clear(fast_logits, ref),
+            "context_graph": ctx.graph is not None,
+            "context_logits_bitwise_equal": bool(np.array_equal(in_ctx, fast_logits)),
+            "no_sync_in_forward": no_sync, "launches": launches, "seg_per_s_fast": rates}
+    ok = (np.isfinite(ref).all() and ref.shape == (N_SEG, birdnet_v24.NUM_SPECIES)
+          and fast.model_type is ModelType.BIRDNET_V24
+          and "SplitToSequence" in ops
+          and bool(ops & {"SequenceAt", "ConcatFromSequence", "SequenceMap"})
+          and line["fp32_scaled_diff_vs_torch"] <= EXPORTED_ORACLE_TOL["torch"]
+          and line["fp32_scaled_diff_card_vs_cpu"] <= EXPORTED_CPU_TOL
+          and line["top1_fast_vs_fp32"]["ok"]
+          and line["context_graph"] and line["context_logits_bitwise_equal"] and no_sync
+          and launches.get("stage_stack_forward", 0) > 0)
+    line["ok"] = bool(ok)
+    emit(line)
+    if not ok:
+        raise AssertionError("op_sets: the sequence head disagrees")
+    return launches
+
+
+def _sync_free(fwd, params, args):
+    """(no sync in a forward, the error if one synced)."""
+    try:
+        return forward_without_sync_of(fwd, params, args), None
+    except RuntimeError as e:
+        torch.cuda.set_sync_debug_mode("default")
+        return False, str(e).splitlines()[0]
+
+
+def _graph_ms(fwd, params, args):
+    """Device ms of a graph replay of the forward, or None and why when the
+    forward cannot be captured."""
+    try:
+        return time_ms(lambda: fwd(params, *args), reps=3), None
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return None, str(e).splitlines()[0]
+
+
+def opset_ops_check(card: str) -> None:
+    """(b) tests/_torch_opset_cases.py on the card against the host: fp32
+    within its TOL of each output's scale (the heavy batch-separable cases
+    on the host's first OPSET_HOST_ROWS rows), the random ops bit for bit
+    and equal across two calls; each op's device ms (graph replay) and
+    whether its forward syncs."""
+    import _torch_opset_cases as oc
+
+    cases, failed = {}, []
+    for name in oc.CASES:
+        data = oc.model_bytes(name)
+        inputs = [np.array(v) for v in oc.inputs_of(name).values()]
+        fwd, params = port_forward(data, CARD)
+        args = [torch.from_numpy(v).to(CARD) for v in inputs]
+        got = [o.cpu() for o in fwd(params, *args)]
+        again = [o.cpu() for o in fwd(params, *args)]
+        rows = OPSET_HOST_ROWS if name in OPSET_HOST_SLICED else None
+        hfwd, hparams = port_forward(data, "cpu")
+        host = hfwd(hparams, *[torch.from_numpy(v[:rows] if rows else v) for v in inputs])
+        if name in oc.RANDOM:
+            err = 0.0 if all(torch.equal(g, h) for g, h in zip(got, host)) else None
+        else:
+            err = max(scaled_diff(g[:rows].double().numpy() if rows else g.double().numpy(),
+                                  h.double().numpy()) for g, h in zip(got, host))
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        no_sync, sync_error = _sync_free(fwd, params, args)
+        ms, capture_error = _graph_ms(fwd, params, args)
+        cases[name] = {"shapes": [list(g.shape) for g in got],
+                       "scaled_diff_card_vs_cpu": err, "host_rows": rows,
+                       "repeat_bitwise": repeat, "no_sync_in_forward": no_sync,
+                       "sync_error": sync_error, "ms": ms, "capture_error": capture_error}
+        if err is None or err > oc.TOL or (name in oc.RANDOM and not repeat) or not all(
+                torch.isfinite(g.float()).all() for g in got):
+            failed.append(name)
+        del fwd, params, args, got, again, host
+        torch.cuda.empty_cache()
+    emit({"phase": "op_sets", "part": "ops", "card": card, "tol": oc.TOL, "cases": cases,
+          "ok": not failed})
+    if failed:
+        raise AssertionError(f"op_sets: ops disagree on the card: {failed}")
+
+
+def ml_heads_check(card: str, tmp: str) -> None:
+    """(c) tests/_torch_opset_cases.py's ai.onnx.ml heads on one hour of
+    full-width v3.0 and Perch embeddings (conv, fast, embed_samples): card
+    against the port on the host (scores within ML_TOL of their scale,
+    labels equal), the linear head against its numpy oracle, no sync in
+    any head's forward (the Platt loop's included), device ms per head and
+    the SVM head's kernel launches per forward."""
+    import _torch_opset_cases as oc
+
+    pcm = (np.random.default_rng(SEED + 61).standard_normal(FAMILY_HOUR, dtype=np.float32)
+           * 3000).clip(-32768, 32767).astype(np.int16)
+    failed = []
+    for family, module in FAMILIES.items():
+        path = str(Path(tmp) / f"{family}_heads.onnx")
+        P.save_model(module.build_model(seed=SEED, frontend="conv"), path)
+        clf = built(path, family_labels(module.NUM_SPECIES), "fast")
+        emb, _ = clf.embed_samples(pcm)
+        del clf
+        torch.cuda.empty_cache()
+        emb = np.ascontiguousarray(np.asarray(emb, np.float32))
+        heads = oc.ml_heads(emb, ML_HEAD_SEED)
+        x_card, x_host = torch.from_numpy(emb).to(CARD), torch.from_numpy(emb)
+        line = {"phase": "op_sets", "part": "ml_heads", "card": card, "family": family,
+                "embeddings": list(emb.shape), "heads": {}}
+        for head, data in heads.items():
+            fwd, params = port_forward(data, CARD)
+            hfwd, hparams = port_forward(data, "cpu")
+            got = [o.cpu() for o in fwd(params, x_card)]
+            want = hfwd(hparams, x_host)
+            scores_diff = max(scaled_diff(g.double().numpy(), w.double().numpy())
+                              for g, w in zip(got, want) if w.is_floating_point())
+            labels_equal = all(torch.equal(g, w) for g, w in zip(got, want)
+                               if not w.is_floating_point())
+            no_sync, sync_error = _sync_free(fwd, params, [x_card])
+            ms, capture_error = _graph_ms(fwd, params, [x_card])
+            h = {"outputs": [list(g.shape) for g in got], "scaled_diff_card_vs_cpu": scores_diff,
+                 "labels_equal": labels_equal, "no_sync_in_forward": no_sync,
+                 "sync_error": sync_error, "ms": ms, "capture_error": capture_error}
+            ok = scores_diff <= ML_TOL and labels_equal and no_sync
+            if head == "linear":
+                want_labels, want_scores = oc.linear_oracle(emb, oc.linear_attrs(emb, ML_HEAD_SEED))
+                top2 = np.sort(want_scores, axis=1)[:, -2:]
+                clear = top2[:, 1] - top2[:, 0] > ML_TOL
+                h["scaled_diff_vs_numpy"] = scaled_diff(got[1].double().numpy(), want_scores)
+                h["labels_vs_numpy_where_clear"] = (
+                    f"{int((got[0].numpy() == want_labels)[clear].sum())}/{int(clear.sum())}")
+                ok = (ok and h["scaled_diff_vs_numpy"] <= ML_TOL
+                      and bool((got[0].numpy() == want_labels)[clear].all()))
+            if head == "svm":
+                h["kernel_launches_per_forward"] = sum(
+                    device_kernel_names(lambda: fwd(params, x_card)).values())
+            h["ok"] = bool(ok)
+            line["heads"][head] = h
+            if not ok:
+                failed.append(f"{family}/{head}")
+        emit(line)
+    if failed:
+        raise AssertionError(f"op_sets: ml heads disagree on the card: {failed}")
+
+
+def phase_op_sets(card: str) -> dict:
+    """The op_sets phase (see the module docstring). Returns the sequence
+    head's launch counts."""
+    t_phase = time.perf_counter()
+    sys.path.insert(0, str(REPO / "tests"))
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = seq_head_check(card, tmp)
+        torch.cuda.empty_cache()
+        opset_ops_check(card)
+        ml_heads_check(card, tmp)
+    emit({"phase": "op_sets_time", "card": card, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def main_ab() -> int:
     """``--ab``: B4 at the full-width geometry, B5 at int16 step 144000
     (and 72000), the B3 forward sum and predict_batch(32) under mixed, only
@@ -2691,6 +2966,7 @@ def main() -> int:
         exported_launches, v24_rates = phase_exported(smi, paths["conv"])
         path_launches.append(exported_launches)
         path_launches.append(phase_control_flow(smi, v24_rates))
+        path_launches.append(phase_op_sets(smi))
     # Each kernel's launches summed over its paths; B5's from its kernel
     # phase.
     launches = {k: sum(run[k] for run in path_launches) for k in path_launches[0]}

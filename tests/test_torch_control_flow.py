@@ -18,7 +18,7 @@ jax = pytest.importorskip("jax")
 
 import test_compiler_ops as compiler_cases  # noqa: E402
 import test_control_flow_dynamic as dynamic_cases  # noqa: E402
-from _torch_dual import dual_run_graph, graph_model, run_jax_jit, run_port_cpu, \
+from _torch_dual import dual_run_graph, graph_model, run_jax, run_port, \
     through_the_port  # noqa: E402
 
 from birdnet_tpu.onnx import proto as P  # noqa: E402
@@ -80,7 +80,7 @@ def _counter_body(extra_nodes=(), inits=(), scan=True):
 
 def _both(nodes, inputs, inits=None, outputs=("y",)):
     data = P.encode_model(graph_model(nodes, inputs, inits, list(outputs)))
-    return run_port_cpu(data, list(inputs.values())), run_jax_jit(data, list(inputs.values()))
+    return run_port(data, list(inputs.values())), run_jax(data, list(inputs.values()))
 
 
 @pytest.mark.parametrize("m", [65, 200])
@@ -137,9 +137,9 @@ def test_loop_errors_match_the_jax_lowering(case):
             ("final", "scans"), "data-dependent"
     data = P.encode_model(graph_model([node], inputs, inits, list(outs)))
     with pytest.raises(NotImplementedError, match=match):
-        run_port_cpu(data, list(inputs.values()))
+        run_port(data, list(inputs.values()))
     with pytest.raises(NotImplementedError, match=match):
-        run_jax_jit(data, list(inputs.values()))
+        run_jax(data, list(inputs.values()))
 
 
 def _if_branches(then_nodes, then_out, else_nodes, else_out):
@@ -163,9 +163,9 @@ def test_if_with_a_tensor_condition_and_branches_of_two_shapes_is_refused():
     data = P.encode_model(graph_model(nodes, {"x": x}, {"zero": np.float32(0.0)}))
     tops.HOST_READS["Loop"] = 0
     with pytest.raises(ValueError, match="'gate'"):
-        run_port_cpu(data, [x])
+        run_port(data, [x])
     with pytest.raises(Exception):
-        run_jax_jit(data, [x])
+        run_jax(data, [x])
 
 
 @pytest.mark.parametrize("take", [True, False])
@@ -224,10 +224,10 @@ def test_sparse_initializer_in_a_loop_body():
     node = P.make_node("Loop", ["M", "", "x"], ["final"], body=body)
     data = P.encode_model(graph_model([node], {"x": x}, {"M": np.array(3, np.int64)},
                                       ["final"]))
-    (got,) = run_port_cpu(data, [x])
+    (got,) = run_port(data, [x])
     np.testing.assert_array_equal(got, x + 3 * dense)
     with pytest.raises(Exception, match="bump"):
-        run_jax_jit(data, [x])
+        run_jax(data, [x])
 
 
 @pytest.mark.parametrize("name", sorted(__import__("_torch_flow_cases").CASES))
@@ -239,7 +239,7 @@ def test_realistic_case_matches_jax(name):
     from _torch_core_common import assert_close
 
     data, inputs = flow.model_bytes(name), list(flow.CASES[name][1].values())
-    got, want = run_port_cpu(data, inputs), run_jax_jit(data, inputs)
+    got, want = run_port(data, inputs), run_jax(data, inputs)
     assert len(got) == len(want)
     for i, (g, w) in enumerate(zip(got, want)):
         assert_close(g, w, 1e-4, f"{name} output {i}")
@@ -257,7 +257,7 @@ def test_merged_decoder_at_width_1024_matches_jax(flag):
     data = flow.merged_decoder_bytes()
     x = np.random.default_rng(1).normal(size=(2, 1024)).astype(np.float32)
     past = np.random.default_rng(2).normal(size=(2, 512)).astype(np.float32)
-    (got,) = run_port_cpu(data, [x, np.array([flag]), past])
+    (got,) = run_port(data, [x, np.array([flag]), past])
     jm = j_import_onnx(data)
     assert jm.dispatch_inputs == ["use_cache_branch"]
     (want,) = j_make_forward(jm, "fp32")(jm.params, x, np.array([flag]), past)

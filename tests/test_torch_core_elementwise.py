@@ -16,53 +16,66 @@ from _torch_core_common import (  # noqa: E402
 )
 from birdnet_tpu.onnx import proto as P  # noqa: E402
 
-# The JAX package's ops.py names that the port leaves for later (ROADMAP
-# A11): none since the control flow, the RNNs, Resize/Upsample and the
-# attention family were ported.
+# The JAX package's ops.py names that the port leaves for later: none.
 DEFERRED_OPS_PY = set()
 
 
 def test_registry_is_the_ops_py_core_less_the_deferred_names():
     """The port's registry: the names birdnet_tpu/compiler/ops.py registers,
     less the deferred ones, plus ``Scatter`` (ops_extended.py's alias of
-    ScatterElements): 158 names, every one in the JAX registry."""
+    ScatterElements), the names of ops_extended.py and
+    ``SimplifiedLayerNormalization`` (ops_contrib.py's one core name): 204
+    names, the JAX registry's."""
     import re
     from pathlib import Path
 
     from birdnet_tpu.compiler import ops as jops
+    from birdnet_tpu.compiler import ops_extended as jext
     from birdnet_tpu_torch.compiler import ops as tops
 
-    src = Path(jops.__file__).read_text()
-    ops_py = set()
-    for line in src.splitlines():
-        if line.lstrip().startswith(("@op(", "op(")):
-            ops_py.update(re.findall(r'"([A-Za-z_0-9]+)"', line.split(")")[0]))
+    def registered(module):
+        names = set()
+        for line in Path(module.__file__).read_text().splitlines():
+            if line.lstrip().startswith(("@op(", "op(")):
+                names.update(re.findall(r'"([A-Za-z_0-9]+)"', line.split(")")[0]))
+        return names
+
     port = set(tops.supported_ops())
-    assert port == (ops_py - DEFERRED_OPS_PY) | {"Scatter"}
-    assert len(port) == 158
-    assert port <= set(jops.supported_ops())
+    assert port == ((registered(jops) - DEFERRED_OPS_PY) | registered(jext)
+                    | {"SimplifiedLayerNormalization"})
+    assert len(port) == 204
+    assert port == set(jops.supported_ops())
 
 
 def _missing_names():
+    """The com.microsoft names of the JAX contrib table that the port
+    lacks (ROADMAP A13: ops_contrib.py)."""
     from birdnet_tpu.compiler import ops as jops
     from birdnet_tpu_torch.compiler import ops as tops
 
-    return sorted(set(jops.supported_ops()) - set(tops.supported_ops()))
+    return sorted(n.removeprefix("com.microsoft.") for n in
+                  set(jops.supported_contrib_ops()) - set(tops.supported_contrib_ops())
+                  if n.startswith("com.microsoft."))
 
 
 @pytest.mark.parametrize("name", _missing_names())
 def test_a_missing_name_fails_at_import_naming_it(name):
-    """The 46 names the port still lacks (ROADMAP A11: ops_extended.py's
-    45 and SimplifiedLayerNormalization): a graph that uses one fails at
-    the port's import with a ModelLoadError naming it."""
+    """The 44 com.microsoft names the port still lacks (ROADMAP A13): a
+    graph that uses one fails at the port's import with a ModelLoadError
+    naming it with its domain."""
     from birdnet_tpu_torch.compiler.importer import import_onnx as t_import
     from birdnet_tpu_torch.errors import ModelLoadError
 
-    assert len(_missing_names()) == 46
-    data = model_bytes([P.make_node(name, ["x"], ["y"])], {"x": normal((2, 3), 0)}, {},
-                       ["y"], 17)
-    with pytest.raises(ModelLoadError, match=f"unsupported ops: {name}$"):
-        t_import(data, optimize=False)
+    assert len(_missing_names()) == 44
+    node = P.make_node(name, ["x"], ["y"], domain="com.microsoft")
+    graph = P.GraphProto(name="t", node=[node],
+                         input=[P.make_value_info("x", P.DataType.FLOAT, [2, 3])],
+                         output=[P.make_value_info("y", P.DataType.FLOAT, [])])
+    model = P.ModelProto(ir_version=8, producer_name="t", producer_version="0", graph=graph,
+                         opset_import=[P.OperatorSetId(domain="", version=17),
+                                       P.OperatorSetId(domain="com.microsoft", version=1)])
+    with pytest.raises(ModelLoadError, match=f"unsupported ops: com.microsoft.{name}$"):
+        t_import(P.encode_model(model), optimize=False)
 
 
 X = normal((2, 3, 4, 5), 0)

@@ -21,6 +21,13 @@ from _torch_flow_cases import CASES as FLOW_CASES  # noqa: E402
 from _torch_flow_cases import TOL as FLOW_TOL  # noqa: E402
 from _torch_flow_cases import WHILE, WHILE_STEPS, merged_decoder_bytes  # noqa: E402
 from _torch_flow_cases import model_bytes as flow_model_bytes  # noqa: E402
+from _torch_opset_cases import CASES as OPSET_CASES  # noqa: E402
+from _torch_opset_cases import HEADS as ML_HEADS  # noqa: E402
+from _torch_opset_cases import RANDOM as OPSET_RANDOM  # noqa: E402
+from _torch_opset_cases import TOL as OPSET_TOL  # noqa: E402
+from _torch_opset_cases import inputs_of as opset_inputs  # noqa: E402
+from _torch_opset_cases import ml_heads  # noqa: E402
+from _torch_opset_cases import model_bytes as opset_model_bytes  # noqa: E402
 from _v24_qconv_shapes import v24_qconv_shapes  # noqa: E402
 from birdnet_tpu_torch.compiler._melbank import mel_weight_matrix  # noqa: E402
 from birdnet_tpu_torch.ops.cuda import frontend as fe  # noqa: E402
@@ -761,3 +768,92 @@ def test_batch_context_refuses_a_while_form_graph(dev, tmp_path):
     assert np.isfinite(got).all()
     with pytest.raises(InferenceError, match="capture"):
         clf.create_batch_context(4)
+
+
+# The long tail of ai.onnx and the ai.onnx.ml heads (tests/_torch_opset_cases.py,
+# chip_smoke.py's op_sets phase): each graph on the card against the host,
+# fp32 with TF32 off, within 1e-5 of each output's scale, the random ops bit
+# for bit; the heavy batch-separable graphs on the host's first 4 rows.
+OPSET_HOST_SLICED = ("GridSample_bilinear", "GridSample_bicubic", "AffineGrid_GridSample",
+                     "DeformConv")
+
+
+def _forward_on(data, device):
+    from birdnet_tpu_torch.compiler.importer import import_onnx, make_forward, params_to_torch
+
+    model = import_onnx(data)
+    return make_forward(model, "fp32", device), params_to_torch(model.params, device)
+
+
+def _sync_free_forward(fwd, params, args):
+    fwd(params, *args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fwd(params, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("name", sorted(OPSET_CASES))
+def test_opset_op_on_the_card_matches_the_cpu(dev, name):
+    data = opset_model_bytes(name)
+    inputs = [np.array(v) for v in opset_inputs(name).values()]
+    rows = 4 if name in OPSET_HOST_SLICED else None
+    fwd, params = _forward_on(data, dev)
+    got = [o.cpu() for o in fwd(params, *[torch.from_numpy(v).to(dev) for v in inputs])]
+    hfwd, hparams = _forward_on(data, "cpu")
+    want = hfwd(hparams, *[torch.from_numpy(v[:rows] if rows else v) for v in inputs])
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g = g[:rows] if rows else g
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        if name in OPSET_RANDOM or not w.is_floating_point():
+            assert torch.equal(g, w), name
+            continue
+        scale = max(float(w.double().abs().max()), 1e-30)
+        assert float((g.double() - w.double()).abs().max()) <= OPSET_TOL * scale, name
+
+
+@pytest.mark.parametrize("name", ["RoiAlign", "TensorScatter_linear", "Multinomial"])
+def test_opset_op_forward_does_not_sync(dev, name):
+    fwd, params = _forward_on(opset_model_bytes(name), dev)
+    args = [torch.from_numpy(np.array(v)).to(dev) for v in opset_inputs(name).values()]
+    _sync_free_forward(fwd, params, args)
+
+
+@pytest.mark.parametrize("head", ML_HEADS)
+def test_ml_head_on_the_card_matches_the_cpu(dev, head):
+    """Each ai.onnx.ml head on 720 embeddings of width 1024: scores within
+    1e-5 of their scale, labels equal, a forward without a sync."""
+    emb = np.random.default_rng(0).normal(size=(720, 1024)).astype(np.float32)
+    data = ml_heads(emb, 1)[head]
+    fwd, params = _forward_on(data, dev)
+    x = torch.from_numpy(emb).to(dev)
+    got = [o.cpu() for o in _sync_free_forward(fwd, params, [x])]
+    hfwd, hparams = _forward_on(data, "cpu")
+    want = hfwd(hparams, torch.from_numpy(emb))
+    for g, w in zip(got, want):
+        if not w.is_floating_point():
+            assert torch.equal(g, w), head
+            continue
+        scale = max(float(w.double().abs().max()), 1e-30)
+        assert float((g.double() - w.double()).abs().max()) <= OPSET_TOL * scale, head
+
+
+def test_random_op_in_a_batch_context_graph_replays_its_noise(dev):
+    """A CUDA graph of a graph with a random op replays the same noise,
+    equal to the host's draws (the noise is drawn on the host and
+    uploaded once)."""
+    fwd, params = _forward_on(opset_model_bytes("RandomNormal"), dev)
+    x = torch.zeros(1, device=dev)
+    (first,) = fwd(params, x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        (out,) = fwd(params, x)
+    graph.replay()
+    a = out.clone()
+    graph.replay()
+    hfwd, hparams = _forward_on(opset_model_bytes("RandomNormal"), "cpu")
+    (host,) = hfwd(hparams, torch.zeros(1))
+    assert torch.equal(a, out) and torch.equal(a.cpu(), host) and torch.equal(first, a)

@@ -4,11 +4,13 @@ exporter and run through both packages at fp32: the port on the CPU
 against torch eval and against the JAX package's jitted forward, at that
 suite's tolerance.
 
-Seventeen fixed seeds over eleven grammars. ``_control_flow_net``'s five
+Twenty-one fixed seeds over eleven grammars. ``_control_flow_net``'s five
 templates (If, the static for form, the while form, an If inside a for
 loop, two carried values) each have the first seed of its base that draws
 that template (``pick``): seeds chosen by the template they draw, never by
-whether they pass.
+whether they pass. ``_random_shape_net`` at seeds 25, 40, 46 and 97 draws
+a chunk that libtorch writes as SplitToSequence + SequenceAt (the sequence
+ops of ops_extended.py).
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ SAMPLES = [
     ("_control_flow_net", 5000, 2), ("_control_flow_net", 5000, 8),
     ("_control_flow_net", 5000, 4), ("_control_flow_net", 5000, 0),
     ("_control_flow_net", 5000, 12),
+    # _random_shape_net drawing SplitToSequence + SequenceAt.
+    ("_random_shape_net", 7000, 25), ("_random_shape_net", 7000, 40),
+    ("_random_shape_net", 7000, 46), ("_random_shape_net", 7000, 97),
 ]
 
 

@@ -23,8 +23,8 @@ import test_compiler_ops_extra as extra_cases  # noqa: E402
 import test_legacy_opset as legacy_cases  # noqa: E402
 import test_ops_wave3 as wave3_cases  # noqa: E402
 from _torch_core_common import POLICY, assert_close  # noqa: E402
-from _torch_dual import dual_run_graph, dual_run_model, graph_model, run_jax_jit, \
-    run_port_cpu, through_the_port  # noqa: E402
+from _torch_dual import dual_run_graph, dual_run_model, graph_model, run_jax, \
+    run_port, through_the_port  # noqa: E402
 
 from birdnet_tpu.onnx import proto as P  # noqa: E402
 
@@ -102,8 +102,8 @@ def test_attention_mixed_policy_within_the_policy_bound(causal):
     inputs = {"q": q, "k": k, "v": v, "pk": past, "pv": past}
     data = P.encode_model(graph_model([node], inputs, None, ["y", "pres_k", "pres_v"],
                                       opset=23))
-    got = run_port_cpu(data, list(inputs.values()), "mixed")
-    want = run_jax_jit(data, list(inputs.values()), "mixed")
+    got = run_port(data, list(inputs.values()), "mixed")
+    want = run_jax(data, list(inputs.values()), "mixed")
     for i, (g, w) in enumerate(zip(got, want)):
         assert_close(g, w, POLICY, f"output {i}")
 
@@ -123,7 +123,7 @@ def test_resize_scales_from_an_initializer_stay_host_values():
     env = consts_to_device(model.consts, "cpu", model.graph)
     assert isinstance(env["scales"], np.ndarray)
     assert isinstance(consts_to_device(model.consts, "cpu")["scales"], torch.Tensor)
-    (got,) = run_port_cpu(data, [x])
-    (want,) = run_jax_jit(data, [x])
+    (got,) = run_port(data, [x])
+    (want,) = run_jax(data, [x])
     assert got.shape == (2, 3, 20)
     assert_close(got, want, 1e-6, "resize")

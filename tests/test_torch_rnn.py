@@ -18,7 +18,7 @@ jax = pytest.importorskip("jax")
 
 import test_rnn_ops as rnn_cases  # noqa: E402
 from _torch_core_common import POLICY, assert_close  # noqa: E402
-from _torch_dual import PARITY, dual_run_graph, graph_model, run_jax_jit, run_port_cpu, \
+from _torch_dual import PARITY, dual_run_graph, graph_model, run_jax, run_port, \
     through_the_port  # noqa: E402
 
 from birdnet_tpu.onnx import proto as P  # noqa: E402
@@ -73,8 +73,8 @@ def _data(kind, dirs, seed, ins=("x", "w", "r", "b"), extra=None, n_out=2, x_sha
 
 
 def _parity(data, inputs, tol=PARITY, precision="fp32"):
-    got = run_port_cpu(data, inputs, precision)
-    want = run_jax_jit(data, inputs, precision)
+    got = run_port(data, inputs, precision)
+    want = run_jax(data, inputs, precision)
     for i, (g, w) in enumerate(zip(got, want)):
         assert_close(g, w, tol, f"output {i}")
     return got
@@ -98,7 +98,7 @@ def test_lstm_input_forget_couples_the_forget_gate():
     computes it, against a numpy recurrence; the JAX package ignores the
     attribute (its answer equals its input_forget=0 answer; ROADMAP C)."""
     data, inputs, inits = _data("LSTM", 1, 4, n_out=3, input_forget=1)
-    y, y_h, y_c = run_port_cpu(data, inputs)
+    y, y_h, y_c = run_port(data, inputs)
     x = inputs[0].astype(np.float64)
     w, r, b = inits["w"][0], inits["r"][0], inits["b"][0]
     sig = lambda v: 1.0 / (1.0 + np.exp(-v))  # noqa: E731
@@ -112,8 +112,8 @@ def test_lstm_input_forget_couples_the_forget_gate():
         np.testing.assert_allclose(y[t, 0], h, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(y_c[0], c, rtol=1e-4, atol=1e-5)
     uncoupled, _, _ = _data("LSTM", 1, 4, n_out=3)
-    np.testing.assert_array_equal(run_jax_jit(data, inputs)[0],
-                                  run_jax_jit(uncoupled, inputs)[0])
+    np.testing.assert_array_equal(run_jax(data, inputs)[0],
+                                  run_jax(uncoupled, inputs)[0])
 
 
 @pytest.mark.parametrize("kind", ["GRU", "RNN"])
@@ -163,8 +163,8 @@ def test_fast_recurrence_after_a_bf16_activation():
                          direction="bidirectional")]
     data = P.encode_model(graph_model(nodes, {"x": x}, inits, ["y", "y_h"]))
     with pytest.raises(TypeError, match="carry"):
-        run_jax_jit(data, [x], "fast")
-    fast, ref = run_port_cpu(data, [x], "fast"), run_port_cpu(data, [x], "fp32")
+        run_jax(data, [x], "fast")
+    fast, ref = run_port(data, [x], "fast"), run_port(data, [x], "fp32")
     for f, r in zip(fast, ref):
         assert f.dtype_name == "float32"
         assert_close(f, r, 2 ** -6, "fast vs fp32")
