@@ -420,11 +420,14 @@ def _validate_ops(model: ImportedModel) -> None:
 
 
 def interpret_graph(graph: GraphProto, opset: int, precision: str,
-                    env: Dict[str, object], output_names, device):
+                    env: Dict[str, object], output_names, device,
+                    subgraph_consts=None):
     """Interpret a node list eagerly against a pre-seeded environment.
 
     Shared by the top-level forward and by fused nodes, whose bodies read
-    outer-scope values already present in ``env``."""
+    outer-scope values already present in ``env``. ``subgraph_consts``
+    (:func:`subgraph_consts_to_device`) holds the initializers of the
+    subgraphs that the nodes run."""
     for node in graph.node:
         fn = op_registry.get_lowering(node.op_type, node.domain)
         n_out = len(node.output)
@@ -440,6 +443,7 @@ def interpret_graph(graph: GraphProto, opset: int, precision: str,
             env=env,
             out_names=node.output,
             device=device,
+            subgraph_consts=subgraph_consts,
         )
         try:
             args = [env[i] if i else None for i in node.input]
@@ -502,6 +506,34 @@ def consts_to_device(consts: Dict[str, np.ndarray], device,
     }
 
 
+def graph_consts_to_device(graph: GraphProto, device) -> Dict[str, object]:
+    """A subgraph's own initializers, dense and sparse (densified), as
+    :func:`consts_to_device` holds the top graph's."""
+    values = {t.name: t.to_numpy() for t in graph.initializer}
+    values.update({sp.name: sp.to_dense() for sp in graph.sparse_initializer})
+    return consts_to_device(values, device, graph)
+
+
+def subgraph_consts_to_device(graph: GraphProto, device) -> Dict[int, tuple]:
+    """The initializers of every subgraph under ``graph`` (If branches, Loop
+    and Scan bodies, fused bodies, generation encoders and decoders), each
+    as ``(subgraph, graph_consts_to_device(subgraph))`` under
+    ``id(subgraph)``. A forward builds them once and holds them for its
+    life: its If, Loop and generation steps upload nothing, and the tensors
+    that a captured CUDA graph reads stay alive as long as the forward."""
+    out: Dict[int, tuple] = {}
+
+    def walk(g):
+        for node in g.node:
+            for sub in _node_subgraphs(node):
+                if id(sub) not in out:
+                    out[id(sub)] = (sub, graph_consts_to_device(sub, device))
+                    walk(sub)
+
+    walk(graph)
+    return out
+
+
 def make_forward(model: ImportedModel, precision: str = "fp32",
                  device=None):
     """Build the eager forward ``fn(params, *inputs) -> tuple(outputs)``.
@@ -528,15 +560,18 @@ def make_forward(model: ImportedModel, precision: str = "fp32",
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = device_or_default(device)
+    sub_consts = subgraph_consts_to_device(model.graph, device)
     if model.dispatch_inputs:
-        return _make_dispatching_forward(model, precision, device)
-    return _make_plain_forward(model, precision, device)
+        return _make_dispatching_forward(model, precision, device, sub_consts)
+    return _make_plain_forward(model, precision, device, sub_consts)
 
 
 def _make_plain_forward(model: ImportedModel, precision: str, device,
-                        pinned=None):
-    """The forward of one program. ``pinned`` maps input names to host
-    values seeded into the environment instead of taken from ``*inputs``."""
+                        sub_consts, pinned=None):
+    """The forward of one program. ``sub_consts`` is
+    :func:`subgraph_consts_to_device` of the model's graph, which the
+    forward holds. ``pinned`` maps input names to host values seeded into
+    the environment instead of taken from ``*inputs``."""
     graph, opset = model.graph, model.opset
     pinned = dict(pinned) if pinned else {}
     input_names = [n for n in model.input_names if n not in pinned]
@@ -554,12 +589,13 @@ def _make_plain_forward(model: ImportedModel, precision: str, device,
         env.update(zip(input_names, inputs))
         with torch.inference_mode():
             return interpret_graph(graph, opset, precision, env, output_names,
-                                   device)
+                                   device, sub_consts)
 
     return forward
 
 
-def _make_dispatching_forward(model: ImportedModel, precision: str, device):
+def _make_dispatching_forward(model: ImportedModel, precision: str, device,
+                              sub_consts):
     """Call-time dispatch over ``model.dispatch_inputs``
     (birdnet_tpu/compiler/importer.py:644-695): one specialized forward per
     observed truthiness of the flags, whose values are pinned as host
@@ -598,7 +634,8 @@ def _make_dispatching_forward(model: ImportedModel, precision: str, device):
         fn = cache.get(key)
         if fn is None:
             pinned = {n: _canonical(n, t) for n, t in zip(flag_names, key)}
-            fn = cache[key] = _make_plain_forward(model, precision, device, pinned)
+            fn = cache[key] = _make_plain_forward(model, precision, device,
+                                                  sub_consts, pinned)
         return fn(params, *(x for i, x in enumerate(inputs) if i not in flag_set))
 
     return forward

@@ -22,13 +22,15 @@ order, so that each lowering stands where its JAX counterpart does:
 
 The long tail of the core (``ops_extended.py``, with
 ``SimplifiedLayerNormalization``, the one ai.onnx name of the JAX
-package's ``ops_contrib.py``) registers into this table, and the
-ai.onnx.ml domain (``ops_ml.py``) into the table keyed by (domain, name)
-(``contrib_op``); both are imported at this module's tail. A
-``com.microsoft`` node takes a contrib lowering, or the core one for the
-seven spellings that graduated into the core opset (``_GRADUATED_MS_OPS``).
-The rest of com.microsoft (``ops_contrib.py``) is a later port: a graph
-that uses one of its names fails at import, naming it with its domain.
+package's ``ops_contrib.py``) registers into this table; the ai.onnx.ml
+domain (``ops_ml.py``) and the com.microsoft contrib domain
+(``ops_contrib.py``: the fused CNN epilogues, the QLinear* family, the
+transformer ops, MatMulNBits and the generation ops) register into the
+table keyed by (domain, name) (``contrib_op``); all three are imported at
+this module's tail. A ``com.microsoft`` node takes its contrib lowering,
+or the core one for the seven spellings that graduated into the core
+opset (``_GRADUATED_MS_OPS``); any other name fails at import, naming it
+with its domain.
 
 Values in the interpreter's environment are torch tensors (activations and
 float params) or numpy arrays (small constants, shapes, axes). A lowering
@@ -44,7 +46,8 @@ scales) must be host values, and a device tensor there raises "must be a
 compile-time constant", as a tracer does in JAX. The one written exception
 is Loop's while form (a data-dependent trip count or condition, the JAX
 lowering's ``lax.while_loop``): it reads its condition on the host once per
-iteration (``HOST_READS``). An If on a tensor condition runs both branches
+iteration (``HOST_READS``); the generation ops read their early stop once
+per step in the same way. An If on a tensor condition runs both branches
 and selects, so it reads nothing back.
 
 Dtypes follow the JAX lowering's jax.numpy promotion (``_promoted``), with
@@ -170,11 +173,11 @@ class OpContext:
     the forward runs."""
 
     __slots__ = ("op_type", "attrs", "opset", "precision", "node_name",
-                 "num_outputs", "env", "out_names", "device")
+                 "num_outputs", "env", "out_names", "device", "subgraph_consts")
 
     def __init__(self, op_type, attrs, opset=17, precision="fp32",
                  node_name="", num_outputs=1, env=None, out_names=(),
-                 device=torch.device("cpu")):
+                 device=torch.device("cpu"), subgraph_consts=None):
         self.op_type = op_type
         self.attrs = attrs
         self.opset = opset
@@ -186,6 +189,9 @@ class OpContext:
         # for an output the graph never binds (an ml classifier's labels).
         self.out_names = tuple(out_names)
         self.device = device
+        # The forward's subgraph initializers on ``device``
+        # (importer.subgraph_consts_to_device), or None.
+        self.subgraph_consts = subgraph_consts
 
     def wants_output(self, position: int) -> bool:
         if not self.out_names:
@@ -196,7 +202,8 @@ class OpContext:
         return self.attrs.get(name, default)
 
     def on(self, device) -> "OpContext":
-        """A copy of this context for ``device``."""
+        """A copy of this context for ``device``, without the forward's
+        subgraph initializers, which lie on the forward's device."""
         return OpContext(self.op_type, self.attrs, self.opset, self.precision,
                          self.node_name, self.num_outputs, self.env,
                          self.out_names, torch.device(device))
@@ -254,7 +261,9 @@ def _on_device(x, device) -> torch.Tensor:
     value and shared: callers never write to the result."""
     if isinstance(x, torch.Tensor):
         return x.to(device)
-    arr = np.ascontiguousarray(x)
+    arr = np.asarray(x)  # np.ascontiguousarray would make a 0-d value 1-d
+    if not arr.flags.c_contiguous:
+        arr = np.ascontiguousarray(arr)
     if arr.nbytes > _SHARED_UPLOAD_MAX:
         return torch.from_numpy(arr.copy()).to(device)
     return _device_array(arr.tobytes(), arr.dtype.str, arr.shape,
@@ -2581,23 +2590,31 @@ def _run_subgraph(ctx: OpContext, graph, extra_env=None):
     """Interpret a subgraph with outer-scope capture: the enclosing
     environment is visible, shadowed by the subgraph's own initializers
     (dense and sparse, densified here as the importer densifies the top
-    graph's) and ``extra_env``.
+    graph's; float ones with an axis on the forward's device, as the
+    importer holds the top graph's) and ``extra_env``.
+
+    The forward decodes and uploads those initializers once and holds them
+    for its life (``ctx.subgraph_consts``), so no If, Loop iteration or
+    generation step uploads them again, and a captured CUDA graph reads
+    tensors nothing else frees. A context without them (a bare one, or one
+    moved to the host by ``OpContext.on``) decodes them here.
 
     The JAX package seeds only the dense ones, so a body that reads a
     sparse initializer passes its import-time reference check and fails
     when it runs; the port runs it."""
-    from .importer import interpret_graph
+    from .importer import graph_consts_to_device, interpret_graph
 
+    owned = (ctx.subgraph_consts or {}).get(id(graph))
     env = dict(ctx.env)
-    for t in graph.initializer:
-        env[t.name] = t.to_numpy()
-    for sp in graph.sparse_initializer:
-        env[sp.name] = sp.to_dense()
+    if owned is not None and owned[0] is graph:
+        env.update(owned[1])
+    else:
+        env.update(graph_consts_to_device(graph, ctx.device))
     if extra_env:
         env.update(extra_env)
     return interpret_graph(
         graph, ctx.opset, ctx.precision, env, [v.name for v in graph.output],
-        device=ctx.device,
+        device=ctx.device, subgraph_consts=ctx.subgraph_consts,
     )
 
 
@@ -2747,12 +2764,15 @@ def _fused_stft_frontend(ctx, x):
 # in the JAX lowering. A tensor one stays on the device: If runs both
 # branches and selects with ``torch.where`` (the JAX lowering's
 # ``lax.cond``), and Scan and Loop's for form run their steps in Python
-# (``lax.scan``). The one exception is Loop's while form
-# (``lax.while_loop``): a data-dependent condition or trip count is read on
-# the host once per iteration; ``HOST_READS`` counts those reads.
+# (``lax.scan``). The exceptions are Loop's while form
+# (``lax.while_loop``), whose data-dependent condition or trip count is read
+# on the host once per iteration, and the generation ops of
+# ops_contrib.py, whose early stop is read once per step; ``HOST_READS``
+# counts those reads under the op's name.
 # ---------------------------------------------------------------------------
 
-HOST_READS = {"Loop": 0}
+HOST_READS = {"Loop": 0, "GreedySearch": 0, "Sampling": 0, "BeamSearch": 0,
+              "WhisperBeamSearch": 0}
 
 
 def _host_truth(v) -> bool:
@@ -3725,3 +3745,4 @@ def _rotary_embedding(ctx, x, cos_cache, sin_cache, position_ids=None):
 # from here, so this stays at the module's tail.
 from . import ops_extended  # noqa: E402,F401  (registration side effect)
 from . import ops_ml  # noqa: E402,F401  (ai.onnx.ml classical-ML domain)
+from . import ops_contrib  # noqa: E402,F401  (com.microsoft contrib ops)

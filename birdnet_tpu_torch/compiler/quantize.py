@@ -132,13 +132,15 @@ def _collect_absmax(
     import torch
 
     from ..runtime import device_or_default
-    from .importer import consts_to_device, params_to_torch
+    from .importer import (consts_to_device, params_to_torch,
+                           subgraph_consts_to_device)
 
     device = device_or_default(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    consts = consts_to_device(model.consts, device,
-                              graph if graph is not None else model.graph)
+    graph = graph if graph is not None else model.graph
+    consts = consts_to_device(model.consts, device, graph)
+    sub_consts = subgraph_consts_to_device(graph, device)
     params = params_to_torch(model.params, device)
     stats: Dict[str, float] = {}
     for batch in calibration:
@@ -154,10 +156,8 @@ def _collect_absmax(
         for nm, x in zip(model.input_names, batch):
             env[nm] = torch.from_numpy(np.asarray(x, dtype=np.float32)).to(device)
         with torch.inference_mode():
-            interpret_graph(
-                graph if graph is not None else model.graph,
-                model.opset, "fp32", env, model.output_names, device,
-            )
+            interpret_graph(graph, model.opset, "fp32", env,
+                            model.output_names, device, sub_consts)
         for nm in names:
             if nm in env:
                 v = env[nm]

@@ -169,9 +169,40 @@ exits non-zero:
              host, the linear head against numpy, no sync in any head's
              forward, device ms per head and the SVM's launches per forward.
 
+16. contrib — the com.microsoft contrib domain: (1) the full-width v2.4
+             files (conv and STFT) rewritten as onnxruntime's offline
+             optimizer writes them (BatchNormalization folded into Conv,
+             QuickGelu, FusedConv(Sigmoid); tests/_torch_contrib_cases.py's
+             ort_optimized), through Classifier.builder() at fast (with_tpu)
+             and fp32: fp32 against the original file on the card and the
+             port on the host, fast top-1 where clear, the batch context
+             bitwise, one streamed hour (fp32: the original file's top-K),
+             forwards without a sync, B1/B2's launches and B4's (0: its pass
+             matches the plain Sigmoid/Mul spelling), rates beside the
+             original file's; (2) that module's ops at realistic shapes
+             (FusedConv and QLinear* at v2.4's, Attention,
+             MultiHeadAttention, SkipLayerNormalization,
+             EmbedLayerNormalization and FastGelu at BERT-base widths,
+             GroupQueryAttention with rotary at 32/8 heads of 128 over a
+             1,024-token prefill and 16 decode steps, 4-bit MatMulNBits
+             4096 x 4096 at M 16 and 1,024, MurmurHash3 on 10^6 int32),
+             card against host with each op's device ms; (3) GreedySearch,
+             BeamSearch (4 beams) and Sampling over a GPT-2 small-width
+             decoder (batch 2, prompt 16, max_length 64) and
+             WhisperBeamSearch with the timestamp rules at whisper-tiny
+             widths (80 x 3,000 features, 4 beams, max_length 48), card
+             against host: sequences equal, scores within 1e-4, Sampling
+             bit for bit; on the card a warm call timed (steps per second of
+             one prompt row, and tokens per second over the batch's rows),
+             the synchronizing operations per step counted under
+             torch.cuda.set_sync_debug_mode("warn") beside the op's host
+             reads, and for GreedySearch and WhisperBeamSearch a
+             torch.profiler trace of one call (the device's busy share and
+             its launches per step).
+
 Before each driven path (slice, stream, int8, families, the batch
 context's capture, each server's run, the exported files, the CRNN, the
-sequence head) every
+sequence head, the ORT-optimized files) every
 launch count is set to 0;
 the counts are read right after it, and the kernels line sums them. B5, which the JAX package
 reaches only through its public function, counts its kernel phase's calls
@@ -1183,6 +1214,36 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 B4_KERNELS = ("stem_kernel", "expand_dw", "se_gate_kernel", "se_project")
 
 
+def _profile_events(fn) -> tuple:
+    """(wall ms, chrome-trace events) of one call of ``fn`` under
+    torch.profiler. The profiler slows the host, so the profiled wall time
+    runs above the unprofiled one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        return wall_ms, json.loads(Path(trace).read_text())["traceEvents"]
+
+
+def _device_busy_ms(events) -> float:
+    """The union of the trace's device intervals (kernels, copies, sets)."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES)
+    busy, end = 0.0, -1.0
+    for s, t in spans:
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    return busy / 1e3
+
+
 def stream_profile(clf, pcm, frontend_kernel: str) -> dict:
     """torch.profiler over one analyze_samples call: its wall time, the
     device's busy time (the union of its kernel, copy and set intervals),
@@ -1190,36 +1251,20 @@ def stream_profile(clf, pcm, frontend_kernel: str) -> dict:
     the frontend kernel's launches in the trace and the ten device items
     with the most time (ms, launches). The profiler slows the host, so the
     profiled wall time runs above the unprofiled one."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        clf.analyze_samples(pcm)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = os.path.join(tmp, "stream.json")
-        prof.export_chrome_trace(trace)
-        events = json.loads(Path(trace).read_text())["traceEvents"]
-    spans, by_name = [], {}
+    wall_ms, events = _profile_events(lambda: clf.analyze_samples(pcm))
+    by_name = {}
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES:
-            spans.append((e["ts"], e["ts"] + e["dur"]))
             total, count = by_name.get(e["name"], (0.0, 0))
             by_name[e["name"]] = (total + e["dur"], count + 1)
-    busy, end = 0.0, -1.0
-    for s, t in sorted(spans):
-        if t > end:
-            busy += t - max(s, end)
-            end = t
-    if busy <= 0.0:
+    busy_ms = _device_busy_ms(events)
+    if busy_ms <= 0.0:
         raise AssertionError("stream profile: no device interval in the trace")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     b4 = [(total, count) for name, (total, count) in by_name.items()
           if any(k in name for k in B4_KERNELS)]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
-            "idle_share": 1.0 - busy / 1e3 / wall_ms,
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms,
             "b4_device_ms": sum(t for t, _ in b4) / 1e3, "b4_launches": sum(c for _, c in b4),
             "frontend_kernel_launches": sum(c for name, (_, c) in by_name.items()
                                             if frontend_kernel in name),
@@ -3160,6 +3205,340 @@ def phase_op_sets(card: str) -> dict:
     return launches
 
 
+# The contrib phase.
+CONTRIB_FP32_TOL = 1e-4
+CONTRIB_OP_TOL = 1e-5
+CONTRIB_SCORE_RTOL = 1e-4
+GQA_DECODE_STEPS = 16
+# GPT-2 small's widths (12 layers of 768, 12 heads, vocab 50,257) and
+# whisper-tiny's (d 384, 4 + 4 layers, 6 heads, vocab 51,865, 80 mels x 3,000
+# frames; EOS 50257, <|notimestamps|> 50363), random weights from a seed.
+GPT2_SMALL = dict(vocab=50257, d=768, layers=12, heads=12, n_pos=1024)
+WHISPER_TINY = dict(vocab=51865, d=384, enc_layers=4, dec_layers=4, heads=6, mels=80,
+                    n_pos=448, enc_pos=1500)
+WHISPER_FRAMES, WHISPER_EOS, WHISPER_NO_TS = 3000, 50257, 50363
+
+
+def ort_file_check(card: str, frontend: str, path: str, tmp: str, segs: np.ndarray,
+                   pcm: np.ndarray) -> dict:
+    """(1) The full-width v2.4 file rewritten as onnxruntime's offline
+    optimizer writes it, through Classifier.builder() (fast through
+    with_tpu(TPUConfig(...))). Returns its fast run's launch counts."""
+    import _torch_contrib_cases as cc
+
+    t0 = time.perf_counter()
+    ort_path = str(Path(tmp) / f"birdnet_v24_{frontend}_ort.onnx")
+    Path(ort_path).write_bytes(cc.ort_optimized(Path(path).read_bytes()))
+    hist = cc.op_histogram(Path(ort_path).read_bytes())
+    orig32 = built(path, LABELS, "fp32")
+    ref = logits_of(orig32.predict_batch(segs))
+    # The ORT file's run: every count starts at 0 here.
+    reset_launches()
+    fast = (Classifier.builder().model_path(ort_path).labels(LABELS)
+            .with_tpu(TPUConfig(precision="fast", device_id=0)).top_k(5).build())
+    fast_logits = logits_of(fast.predict_batch(segs))
+    ctx = fast.create_batch_context(N_SEG)
+    in_ctx = logits_of(fast.predict_batch_with_context(ctx, segs))
+    fast_stream = fast.analyze_samples(pcm)
+    no_sync = forward_without_sync(fast, segs)
+    launches = read_launches()
+    fp32 = built(ort_path, LABELS, "fp32")
+    logits32 = logits_of(fp32.predict_batch(segs))
+    no_sync = no_sync and forward_without_sync(fp32, segs)
+    stream32, orig_stream32 = fp32.analyze_samples(pcm), orig32.analyze_samples(pcm)
+    same_idx = all([p.index for p in a[1]] == [p.index for p in b[1]]
+                   for a, b in zip(stream32, orig_stream32))
+    conf_diff = max(abs(p.confidence - q.confidence) for a, b in zip(stream32, orig_stream32)
+                    for p, q in zip(a[1], b[1]))
+    host = (Classifier.builder().model_path(ort_path).labels(LABELS).precision("fp32")
+            .with_device("cpu").build())
+    host_logits = logits_of(host.predict_batch(segs[:EXPORTED_CPU_ROWS]))
+    del host
+    orig_fast = built(path, LABELS, "fast")
+    orig_fast.analyze_samples(pcm)  # its key's capture, as fast's above
+    rates = {"ort_context": statistics.median(context_rates(fast, ctx, segs))}
+    for which, clf in (("ort", fast), ("original", orig_fast), ("original", orig_fast),
+                       ("ort", fast)):  # in turns
+        rates.setdefault(f"{which}_predict_batch32", []).append(seg_per_s(clf, segs))
+        rates.setdefault(f"{which}_stream_hour", []).append(stream_rate(clf, pcm))
+    line = {"phase": "contrib", "part": "ort_optimized", "card": card, "frontend": frontend,
+            "ops": hist, "fp32_scaled_diff_vs_original": scaled_diff(logits32, ref),
+            "fp32_scaled_diff_card_vs_cpu": scaled_diff(logits32[:EXPORTED_CPU_ROWS],
+                                                        host_logits),
+            "top1_fast_vs_fp32": top1_where_clear(fast_logits, logits32),
+            "context_logits_bitwise_equal": bool(np.array_equal(in_ctx, fast_logits)),
+            "stream_rows": [len(fast_stream), len(stream32)],
+            "fp32_stream_topk_equal_original": same_idx,
+            "fp32_stream_max_conf_diff_vs_original": conf_diff,
+            "no_sync_in_forward": no_sync, "launches": launches,
+            "b4_launches": launches.get("stage_stack_forward", 0), "seg_per_s_fast": rates,
+            "part_s": time.perf_counter() - t0}
+    ok = (line["fp32_scaled_diff_vs_original"] <= CONTRIB_FP32_TOL
+          and line["fp32_scaled_diff_card_vs_cpu"] <= CONTRIB_FP32_TOL
+          and line["top1_fast_vs_fp32"]["ok"] and line["context_logits_bitwise_equal"]
+          and same_idx and conf_diff <= CONTRIB_FP32_TOL and no_sync
+          and len(fast_stream) == len(stream32) == len(orig_stream32) > 0
+          and hist.get("com.microsoft.FusedConv", 0) > 0
+          and hist.get("com.microsoft.QuickGelu", 0) > 0
+          and launches.get(FRONTEND_KERNEL[frontend], 0) > 0)
+    line["ok"] = bool(ok)
+    emit(line)
+    if not ok:
+        raise AssertionError(f"contrib: the ORT-optimized {frontend} file disagrees")
+    del fast, fp32, orig32, orig_fast, ctx
+    torch.cuda.empty_cache()
+    return launches
+
+
+def contrib_ops_check(card: str) -> None:
+    """(2) tests/_torch_contrib_cases.py's BIG cases on the card against the
+    host (floats within CONTRIB_OP_TOL of each output's scale, integers
+    exact or, for codes from a float sum, within one), each op's device ms
+    (graph replay); 16 GroupQueryAttention decode steps over the prefill's
+    cache; MurmurHash3 on the card bit for bit against the host's numpy
+    path."""
+    import _torch_contrib_cases as cc
+
+    t0 = time.perf_counter()
+    cases, failed = {}, []
+    for name, case in cc.BIG.items():
+        data, vals = case()
+        args = {dev: [torch.from_numpy(np.array(v)).to(dev) for v in vals.values()]
+                for dev in (CARD, "cpu")}
+        fwd, params = port_forward(data, CARD)
+        got = [o.cpu() for o in fwd(params, *args[CARD])]
+        hfwd, hparams = port_forward(data, "cpu")
+        want = hfwd(hparams, *args["cpu"])
+        err, ints_ok = cc.compare(name, got, want)
+        ms, capture_error = _graph_ms(fwd, params, args[CARD])
+        cases[name] = {"shapes": [list(g.shape) for g in got], "scaled_diff_card_vs_cpu": err,
+                       "integers_ok": ints_ok, "ms": ms, "capture_error": capture_error}
+        if name == "MurmurHash3":
+            host_np = get_lowering("MurmurHash3", "com.microsoft")(
+                OpContext("MurmurHash3", {"seed": 42, "positive": 1}), vals["x"])[0]
+            cases[name]["bitwise_vs_host_numpy"] = bool(
+                np.array_equal(got[0].view(torch.int32).numpy().view(np.uint32), host_np))
+            ints_ok = ints_ok and cases[name]["bitwise_vs_host_numpy"]
+        if not (err <= CONTRIB_OP_TOL and ints_ok and ms is not None):
+            failed.append(name)
+        del fwd, params, hfwd, hparams, args, got, want
+        torch.cuda.empty_cache()
+    # 16 decode steps: each step's presents are the next step's past.
+    data, vals = cc.BIG["GroupQueryAttention_prefill"]()
+    decode, _ = cc.gqa_case(1, 1, 1024, 32, 8, 128, SEED + 70, cache=1024 + 24)
+    pres, step_err = {}, 0.0
+    for dev in (CARD, "cpu"):
+        fwd, params = port_forward(data, dev)
+        _, pk, pv = fwd(params, *[torch.from_numpy(np.array(v)).to(dev) for v in vals.values()])
+        dfwd, dparams = port_forward(decode, dev)
+        rng = np.random.default_rng(SEED + 71)
+        outs = []
+        for i in range(GQA_DECODE_STEPS):
+            total = 1024 + i + 1
+            step = [rng.standard_normal((1, 1, n)).astype(np.float32) for n in (4096, 1024, 1024)]
+            args = [torch.from_numpy(a).to(dev) for a in step] + [
+                pk, pv, torch.tensor([total - 1], dtype=torch.int32, device=dev),
+                torch.tensor([total], dtype=torch.int32, device=dev)]
+            y, pk, pv = dfwd(dparams, *args)
+            outs.append(y.cpu())
+        pres[str(dev)] = (outs, pk.cpu())
+    for g, w in zip(pres[str(CARD)][0], pres["cpu"][0]):
+        step_err = max(step_err, scaled_diff(g.double().numpy(), w.double().numpy()))
+    cache_err = scaled_diff(pres[str(CARD)][1].double().numpy(), pres["cpu"][1].double().numpy())
+    cases["GroupQueryAttention_16_decode_steps"] = {
+        "scaled_diff_card_vs_cpu": max(step_err, cache_err),
+        "cache": list(pres["cpu"][1].shape)}
+    if max(step_err, cache_err) > CONTRIB_OP_TOL:
+        failed.append("GroupQueryAttention_16_decode_steps")
+    emit({"phase": "contrib", "part": "ops", "card": card, "tol": CONTRIB_OP_TOL,
+          "cases": cases, "part_s": time.perf_counter() - t0, "ok": not failed})
+    if failed:
+        raise AssertionError(f"contrib: ops disagree on the card: {failed}")
+
+
+def _generation_call(data: bytes, vals: dict, dev):
+    """One generation forward on ``dev`` as a call without arguments; the
+    inputs the lowering reads on the host stay numpy."""
+    import _torch_contrib_cases as cc
+
+    fwd, params = port_forward(data, dev)
+    args = [np.array(v) if k in cc.HOST_INPUTS else torch.from_numpy(np.array(v)).to(dev)
+            for k, v in vals.items()]
+    return lambda: fwd(params, *args)
+
+
+def _generation_run(call, dev, op: str) -> tuple:
+    """(outputs on the host, host reads of the op, seconds) of one call."""
+    from birdnet_tpu_torch.compiler import ops as tops
+
+    tops.HOST_READS[op] = 0
+    if dev == CARD:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = call()
+    if dev == CARD:
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return [o.cpu() for o in outs], tops.HOST_READS[op], seconds
+
+
+def _synchronizing_ops(call) -> tuple:
+    """(outputs on the host, the synchronizing CUDA operations of one call),
+    counted as torch.cuda.set_sync_debug_mode("warn") reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            outs = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [o.cpu() for o in outs], sum("synchroniz" in str(w.message) for w in caught)
+
+
+def generation_profile(call, steps: int, wall_s: float) -> dict:
+    """One generation call under torch.profiler: the device's busy time,
+    its share of the unprofiled call's ``wall_s``, and the kernels and
+    device-to-host copies per generated step."""
+    wall_ms, events = _profile_events(call)
+    busy_ms = _device_busy_ms(events)
+    kernels = sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "kernel")
+    dtoh = sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "gpu_memcpy"
+               and "DtoH" in e.get("name", ""))
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share_of_unprofiled_call": busy_ms / (1e3 * wall_s),
+            "kernels_per_step": kernels / steps, "dtoh_copies_per_step": dtoh / steps}
+
+
+def _top2_margin(m, prefix: np.ndarray) -> float:
+    """The top-2 margin of ``m``'s next-token logits after ``prefix`` (one
+    row), on the host."""
+    rows, length = prefix.shape
+    hd = m.head_dim()
+    empty = [torch.zeros(2, rows, m.heads, 0, hd) for _ in range(m.layers_n)]
+    with torch.no_grad():
+        ids = torch.from_numpy(prefix.astype(np.int32))
+        pos = torch.arange(length, dtype=torch.int32)[None].expand(rows, length)
+        logits = m(ids, pos, torch.ones((rows, length), dtype=torch.int32), *empty)[0][0, -1]
+    top2 = torch.topk(logits, 2).values
+    return float(top2[0] - top2[1])
+
+
+def generation_check(card: str) -> None:
+    """(3) GreedySearch, BeamSearch (4 beams) and Sampling over a GPT-2
+    small-width decoder, and WhisperBeamSearch (4 beams, the timestamp
+    rules) at whisper-tiny widths, card against host at fp32."""
+    import _torch_contrib_cases as cc
+
+    t_part = time.perf_counter()
+    gpt = cc.TinyGpt(seed=SEED + 80, **GPT2_SMALL)
+    t0 = time.perf_counter()
+    step = cc.gpt_step_graph(gpt)
+    export_s = time.perf_counter() - t0
+    prompt = np.random.default_rng(SEED + 81).integers(0, GPT2_SMALL["vocab"], (2, 16))
+    beams = dict(num_beams=np.array([4], np.int32), num_return_sequences=np.array([2], np.int32),
+                 length_penalty=np.array([1.0], np.float32),
+                 repetition_penalty=np.array([1.0], np.float32))
+    runs = {
+        "GreedySearch": cc.generation_model(
+            "GreedySearch", {"decoder": step}, cc.gen_values(
+                prompt, 64, repetition_penalty=np.array([1.1], np.float32)),
+            eos=GPT2_SMALL["vocab"] + 1, pad=0),
+        "Sampling": cc.generation_model(
+            "Sampling", {"decoder": step}, cc.gen_values(prompt, 64),
+            eos=GPT2_SMALL["vocab"] + 1, pad=0, temperature=0.8, top_p=0.9, seed=SEED + 82),
+        "BeamSearch": cc.generation_model(
+            "BeamSearch", {"decoder": step}, cc.gen_values(prompt, 64, **beams),
+            eos=GPT2_SMALL["vocab"] + 1, pad=0, outputs=("sequences", "sequences_scores"),
+            model_type=0),
+    }
+    whisper = cc.EncDec(kind="whisper", seed=SEED + 83, **WHISPER_TINY)
+    feats = (np.random.default_rng(SEED + 84).standard_normal(
+        (1, WHISPER_TINY["mels"], WHISPER_FRAMES)) * 0.5).astype(np.float32)
+    t0 = time.perf_counter()
+    enc, dec = cc.encdec_graphs(whisper, feats)
+    export_s += time.perf_counter() - t0
+    wvals = cc.gen_values([[WHISPER_EOS + 1, WHISPER_EOS + 2, WHISPER_EOS + 3]], 48, **beams)
+    wvals["decoder_input_ids"] = wvals["input_ids"]
+    wvals["input_ids"] = feats
+    wvals["logits_processor"] = np.array([1], np.int32)
+    runs["WhisperBeamSearch"] = cc.generation_model(
+        "WhisperBeamSearch", {"encoder": enc, "decoder": dec}, wvals, eos=WHISPER_EOS, pad=0,
+        outputs=("sequences", "sequences_scores"), model_type=2,
+        no_timestamps_token_id=WHISPER_NO_TS, max_initial_timestamp_index=50)
+    del whisper
+    failed, line = [], {"phase": "contrib", "part": "generation", "card": card,
+                        "export_s": export_s, "runs": {}}
+    for op, (data, vals) in runs.items():
+        # The card: a first call (the CUDA libraries' warm-up and the
+        # upload of host values), a timed one, and one under the sync
+        # debug mode; then the host's.
+        call = _generation_call(data, vals, CARD)
+        first, _, first_s = _generation_run(call, CARD, op)
+        got, reads, card_s = _generation_run(call, CARD, op)
+        counted, syncs = _synchronizing_ops(call)
+        want, _, host_s = _generation_run(_generation_call(data, vals, "cpu"), "cpu", op)
+        seq, ref = got[0].numpy(), want[0].numpy()
+        s0 = vals["decoder_input_ids" if op == "WhisperBeamSearch" else "input_ids"].shape[1]
+        generated = int((seq[..., s0:] != 0).sum())
+        steps = seq.shape[-1] - s0
+        # A step generates one position of every prompt row (seq.shape[0]).
+        r = {"sequences": list(seq.shape), "sequences_equal": bool(np.array_equal(seq, ref)),
+             "host_reads": reads, "host_reads_per_step": reads / max(steps - 1, 1),
+             "synchronizing_ops": syncs, "synchronizing_ops_per_step": syncs / steps,
+             "first_call_s": first_s, "card_s": card_s, "host_s": host_s,
+             "steps_per_s": steps / card_s, "rows": int(seq.shape[0]),
+             "tokens_per_s_all_rows": seq.shape[0] * steps / card_s,
+             "generated_non_pad": generated}
+        if op in ("GreedySearch", "WhisperBeamSearch"):
+            r["profile"] = generation_profile(call, steps, card_s)
+        if len(got) > 1:
+            g, w = got[1].double().numpy(), want[1].double().numpy()
+            r["scores_max_rel_diff"] = float((np.abs(g - w) / np.abs(w)).max())
+            r["scores_ok"] = r["scores_max_rel_diff"] <= CONTRIB_SCORE_RTOL
+        if not r["sequences_equal"]:
+            diff = np.argwhere(seq != ref)[0]
+            r["first_difference"] = [int(v) for v in diff]
+            if op in ("GreedySearch", "Sampling"):
+                r["top2_margin_there"] = _top2_margin(gpt, ref[diff[0]:diff[0] + 1, :diff[-1]])
+        if op == "Sampling":
+            r["card_repeat_bitwise"] = all(np.array_equal(o[0].numpy(), seq)
+                                           for o in (first, counted))
+        del call
+        ok = r["sequences_equal"] and r.get("scores_ok", True) and r.get(
+            "card_repeat_bitwise", True) and reads >= 1
+        r["ok"] = bool(ok)
+        line["runs"][op] = r
+        if not ok:
+            failed.append(op)
+    line["ok"] = not failed
+    line["part_s"] = time.perf_counter() - t_part
+    emit(line)
+    if failed:
+        raise AssertionError(f"contrib: generation disagrees on the card: {failed}")
+
+
+def phase_contrib(card: str, paths: dict) -> dict:
+    """The contrib phase (see the module docstring). Returns the
+    ORT-optimized files' launch counts."""
+    t_phase = time.perf_counter()
+    sys.path.insert(0, str(REPO / "tests"))
+    segs = (np.random.default_rng(SEED + 90).normal(size=(N_SEG, S)) * 0.1).astype(np.float32)
+    pcm = (np.random.default_rng(SEED + 91).standard_normal(HOUR, dtype=np.float32)
+           * 3000).clip(-32768, 32767).astype(np.int16)
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for frontend in FRONTEND_KERNEL:
+            runs.append(ort_file_check(card, frontend, paths[frontend], tmp, segs, pcm))
+    contrib_ops_check(card)
+    generation_check(card)
+    emit({"phase": "contrib_time", "card": card, "phase_s": time.perf_counter() - t_phase})
+    return {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
+
+
 def main_ab() -> int:
     """``--ab``: B4 at the full-width geometry, B5 at int16 step 144000
     (and 72000), the B3 forward sum and predict_batch(32) under mixed, only
@@ -3213,6 +3592,7 @@ def main() -> int:
         path_launches.append(exported_launches)
         path_launches.append(phase_control_flow(smi, v24_rates))
         path_launches.append(phase_op_sets(smi))
+        path_launches.append(phase_contrib(smi, paths))
     # Each kernel's launches summed over its paths; B5's from its kernel
     # phase.
     launches = {k: sum(run[k] for run in path_launches) for k in path_launches[0]}

@@ -204,3 +204,31 @@ def while_classifier_bytes(species: int = 10) -> bytes:
         input=[_vi("input", F.FLOAT, [0, 144_000])],
         output=[_vi("output_0", F.FLOAT, [0, species])])
     return P.encode_model(P.make_model(graph, opset_version=17))
+
+
+def if_classifier_bytes(species: int = 10, seed: int = 0) -> bytes:
+    """A graph on BirdNET v2.4's contract ([N, 144000] -> [N, species])
+    whose If takes a tensor condition (the sign of the batch's mean), so
+    both branches run on every forward. Each branch scales the rows' means
+    by a weight of its own, an initializer of the branch ([1, species],
+    seeded by ``seed``): the forward holds those on its device."""
+    def branch(name, act):
+        w = P.TensorProto.from_numpy(_n((1, species), 80 + 2 * seed + (act == "Relu")),
+                                     name=f"w_{name}")
+        return P.GraphProto(
+            name=name,
+            node=[P.make_node("Mul", ["m", f"w_{name}"], ["h"]),
+                  P.make_node(act, ["h"], ["o"])],
+            initializer=[w], output=[_vi("o", F.FLOAT, [0, species])])
+
+    graph = P.GraphProto(
+        name="if_v24",
+        node=[P.make_node("ReduceMean", ["input"], ["m"], axes=[1], keepdims=1),
+              P.make_node("ReduceMean", ["input"], ["s"], keepdims=0),
+              P.make_node("Greater", ["s", "zero"], ["c"]),
+              P.make_node("If", ["c"], ["output_0"], then_branch=branch("then", "Tanh"),
+                          else_branch=branch("else", "Relu"))],
+        initializer=[P.TensorProto.from_numpy(np.float32(0.0), name="zero")],
+        input=[_vi("input", F.FLOAT, [0, 144_000])],
+        output=[_vi("output_0", F.FLOAT, [0, species])])
+    return P.encode_model(P.make_model(graph, opset_version=17))

@@ -296,12 +296,13 @@ def test_unsupported_op_is_a_load_error():
     P = t_proto
     graph = P.GraphProto(
         name="g",
-        node=[P.make_node("FusedConv", ["x"], ["y"], domain="com.microsoft")],
+        node=[P.make_node("DecoderMaskedMultiHeadAttention", ["x"], ["y"],
+                          domain="com.microsoft")],
         initializer=[],
         input=[P.make_value_info("x", P.DataType.FLOAT, [1, 4])],
         output=[P.make_value_info("y", P.DataType.FLOAT, [1, 4])],
     )
-    with pytest.raises(ModelLoadError, match="com.microsoft.FusedConv"):
+    with pytest.raises(ModelLoadError, match="com.microsoft.DecoderMaskedMultiHeadAttention"):
         t_importer.import_onnx(P.make_model(graph))
 
 

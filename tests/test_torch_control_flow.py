@@ -289,3 +289,35 @@ def test_a_while_form_classifier_runs_on_the_host_and_reads_per_iteration(tmp_pa
     assert ctx.graph is None
     in_ctx = np.stack([r.raw_scores for r in clf.predict_batch_with_context(ctx, segs)])
     np.testing.assert_allclose(in_ctx, want, rtol=1e-5, atol=1e-9)
+
+
+def test_a_forward_decodes_its_subgraph_initializers_once(monkeypatch):
+    """A forward decodes and places its If branches' initializers when it
+    is built and holds them: calling it, or building and running 40 other
+    subgraph models beside it, decodes nothing of its own again, and its
+    answer stays the JAX package's (fp32, 1e-4 of the output's scale)."""
+    import _torch_flow_cases as flow
+
+    from birdnet_tpu_torch.compiler import importer
+
+    decoded = []
+    real = importer.graph_consts_to_device
+    monkeypatch.setattr(importer, "graph_consts_to_device",
+                        lambda g, d: decoded.append(g.name) or real(g, d))
+    data = flow.if_classifier_bytes(10, seed=0)
+    model = importer.import_onnx(data)
+    fwd = importer.make_forward(model, "fp32", "cpu")
+    params = importer.params_to_torch(model.params, "cpu")
+    assert sorted(decoded) == ["else", "then"]
+    segs = (np.random.default_rng(3).normal(size=(2, 144_000)) * 0.1).astype(np.float32)
+    (first,) = fwd(params, torch.from_numpy(segs))
+    for seed in range(1, 41):
+        other = importer.import_onnx(flow.if_classifier_bytes(10, seed))
+        importer.make_forward(other, "fp32", "cpu")(
+            importer.params_to_torch(other.params, "cpu"), torch.from_numpy(segs))
+    decoded.clear()
+    (again,) = fwd(params, torch.from_numpy(segs))
+    assert decoded == []
+    assert torch.equal(first, again)
+    want = np.asarray(run_jax(data, [segs])[0])
+    assert np.abs(first.numpy() - want).max() <= 1e-4 * np.abs(want).max()

@@ -47,37 +47,6 @@ def test_registry_is_the_ops_py_core_less_the_deferred_names():
     assert port == set(jops.supported_ops())
 
 
-def _missing_names():
-    """The com.microsoft names of the JAX contrib table that the port
-    lacks (ROADMAP A13: ops_contrib.py)."""
-    from birdnet_tpu.compiler import ops as jops
-    from birdnet_tpu_torch.compiler import ops as tops
-
-    return sorted(n.removeprefix("com.microsoft.") for n in
-                  set(jops.supported_contrib_ops()) - set(tops.supported_contrib_ops())
-                  if n.startswith("com.microsoft."))
-
-
-@pytest.mark.parametrize("name", _missing_names())
-def test_a_missing_name_fails_at_import_naming_it(name):
-    """The 44 com.microsoft names the port still lacks (ROADMAP A13): a
-    graph that uses one fails at the port's import with a ModelLoadError
-    naming it with its domain."""
-    from birdnet_tpu_torch.compiler.importer import import_onnx as t_import
-    from birdnet_tpu_torch.errors import ModelLoadError
-
-    assert len(_missing_names()) == 44
-    node = P.make_node(name, ["x"], ["y"], domain="com.microsoft")
-    graph = P.GraphProto(name="t", node=[node],
-                         input=[P.make_value_info("x", P.DataType.FLOAT, [2, 3])],
-                         output=[P.make_value_info("y", P.DataType.FLOAT, [])])
-    model = P.ModelProto(ir_version=8, producer_name="t", producer_version="0", graph=graph,
-                         opset_import=[P.OperatorSetId(domain="", version=17),
-                                       P.OperatorSetId(domain="com.microsoft", version=1)])
-    with pytest.raises(ModelLoadError, match=f"unsupported ops: com.microsoft.{name}$"):
-        t_import(P.encode_model(model), optimize=False)
-
-
 X = normal((2, 3, 4, 5), 0)
 POS = np.abs(normal((2, 3, 4), 1)) + 0.1
 UNIT = np.clip(normal((2, 3, 4), 2, 0.5), -0.99, 0.99).astype(np.float32)

@@ -425,3 +425,16 @@ def test_transpose_after_a_fast_product_stays_bf16():
     """A shape op after a policy product keeps the product's dtype."""
     got = check_after_matmul("Transpose", "fast", (2, 3, 16), 8, perm=[0, 2, 1], tol=POLICY)
     assert got[0].dtype_name == "bfloat16"
+
+
+@pytest.mark.parametrize("value", [np.int64(0), np.float32(2.5), np.array([[1, 2]], np.int32),
+                                   np.arange(6, dtype=np.float32).reshape(2, 3).T])
+def test_a_host_value_reaches_a_device_with_its_shape(value):
+    """``_on_device`` (how a host value reaches the card, once per value)
+    keeps a 0-d value 0-d and a transposed one's values: a 0-d Gather index
+    on the card once came out 1-d, so a ``past[0]`` kept its axis."""
+    from birdnet_tpu_torch.compiler.ops import _on_device
+
+    got = _on_device(value, "cpu")
+    assert got.shape == np.shape(value)
+    np.testing.assert_array_equal(got.numpy(), value)

@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_contrib_cases as contrib  # noqa: E402
 from _torch_core_cases import BITWISE as CORE_BITWISE  # noqa: E402
 from _torch_core_cases import CASES as CORE_CASES  # noqa: E402
 from _torch_core_cases import model_bytes as core_model_bytes  # noqa: E402
@@ -770,6 +771,38 @@ def test_batch_context_refuses_a_while_form_graph(dev, tmp_path):
         clf.create_batch_context(4)
 
 
+def test_batch_context_keeps_its_subgraph_constants(dev, tmp_path):
+    """The initializers of an If's branches belong to the forward that
+    runs them: a batch context captured on an If model replays bit for bit
+    equal to predict_batch after 40 other If models (80 branches) have run
+    on the card and been freed, and their memory has been taken again."""
+    import gc
+
+    from _torch_flow_cases import if_classifier_bytes
+
+    from birdnet_tpu_torch import Classifier
+
+    path = tmp_path / "if_v24.onnx"
+    path.write_bytes(if_classifier_bytes(10, seed=0))
+    clf = (Classifier.builder().model_path(str(path)).labels([f"s{i}" for i in range(10)])
+           .precision("fp32").build())
+    ctx = clf.create_batch_context(4)
+    assert ctx.graph is not None
+    x = _segments(4, "cpu", torch.float32).numpy()
+    for seed in range(1, 41):
+        fwd, params = _forward_on(if_classifier_bytes(10, seed), dev)
+        fwd(params, torch.zeros(2, S, device=dev))
+        del fwd, params
+    gc.collect()
+    torch.cuda.synchronize()
+    junk = [torch.full((1, 10), float("nan"), device=dev) for _ in range(4096)]
+    got = clf.predict_batch_with_context(ctx, x)
+    del junk
+    for r, q in zip(got, clf.predict_batch(x)):
+        assert np.isfinite(r.raw_scores).all()
+        np.testing.assert_array_equal(r.raw_scores, q.raw_scores)
+
+
 # The long tail of ai.onnx and the ai.onnx.ml heads (tests/_torch_opset_cases.py,
 # chip_smoke.py's op_sets phase): each graph on the card against the host,
 # fp32 with TF32 off, within 1e-5 of each output's scale, the random ops bit
@@ -1067,3 +1100,72 @@ def test_float8_quantize_linear_on_the_card_matches_the_host(dev, target, satura
                                                    torch.from_numpy(x).to(device))
         bits.append(y.view(torch.uint8).cpu().numpy())
     np.testing.assert_array_equal(bits[0], bits[1])
+
+
+# The com.microsoft contrib domain (tests/_torch_contrib_cases.py, chip_smoke.py's
+# contrib phase): each name's graph on the card against the host, fp32 with
+# TF32 off, floats within 1e-5 of each output's scale, integer codes, token
+# sequences and hashes equal (codes requantized from a float sum within one),
+# generation scores within 1e-4 relative; the inputs a lowering reads on the
+# host (max_length...) stay numpy.
+def _contrib_args(vals, device):
+    return [np.array(v) if k in contrib.HOST_INPUTS else torch.from_numpy(np.array(v)).to(device)
+            for k, v in vals.items()]
+
+
+def _contrib_compare(name, got, want):
+    err, ints_ok = contrib.compare(name, got, want)
+    assert ints_ok, name
+    assert err <= (1e-4 if name in contrib.GENERATION else 1e-5), (name, err)
+
+
+@pytest.mark.parametrize("name", sorted(n for n in contrib.CASES if n != "DynamicTimeWarping"))
+def test_contrib_op_on_the_card_matches_the_cpu(dev, name):
+    data, vals = contrib.CASES[name]()
+    fwd, params = _forward_on(data, dev)
+    got = fwd(params, *_contrib_args(vals, dev))
+    hfwd, hparams = _forward_on(data, "cpu")
+    _contrib_compare(name, got, hfwd(hparams, *_contrib_args(vals, "cpu")))
+
+
+def test_dynamic_time_warping_on_the_card_needs_a_host_value(dev):
+    data, vals = contrib.CASES["DynamicTimeWarping"]()
+    fwd, params = _forward_on(data, dev)
+    with pytest.raises(NotImplementedError, match="compile-time constant"):
+        fwd(params, *_contrib_args(vals, dev))
+
+
+def test_ort_optimized_v24_batch_context_is_bitwise(dev, tmp_path):
+    """A tiny ORT-optimized v2.4 (FusedConv / QuickGelu) at ``fast``: the
+    batch context's graph equals predict_batch bit for bit, the frontend
+    kernel (B2) runs, B4 does not (its pass matches the plain spelling)."""
+    from birdnet_tpu_torch import Classifier
+    from birdnet_tpu_torch.models import birdnet_v24
+    from birdnet_tpu_torch.onnx import proto as P
+
+    path = tmp_path / "v24_ort.onnx"
+    path.write_bytes(contrib.ort_optimized(P.encode_model(
+        birdnet_v24.build_model(num_species=10, width=0.1, depth=1))))
+    clf = (Classifier.builder().model_path(path).labels([f"s{i}" for i in range(10)])
+           .precision("fast").top_k(3).build())
+    fe.reset_launches()
+    sp.reset_launches()
+    ctx = clf.create_batch_context(8)
+    assert fe.LAUNCHES["filterbank_logpower"] > 0 and sp.LAUNCHES["stage_stack_forward"] == 0
+    x = _segments(8, "cpu", torch.float32).numpy()
+    for r, q in zip(clf.predict_batch_with_context(ctx, x), clf.predict_batch(x)):
+        np.testing.assert_array_equal(r.raw_scores, q.raw_scores)
+
+
+def test_generation_reads_the_card_once_per_step(dev):
+    """GreedySearch on the card: the early stop is read once per step."""
+    from birdnet_tpu_torch.compiler import ops as tops
+
+    data, vals = contrib.CASES["GreedySearch"]()
+    fwd, params = _forward_on(data, dev)
+    args = _contrib_args(vals, dev)
+    tops.HOST_READS["GreedySearch"] = 0
+    (seq,) = fwd(params, *args)
+    steps = vals["max_length"][0] - vals["input_ids"].shape[1] - 1
+    assert 1 <= tops.HOST_READS["GreedySearch"] <= steps + 1
+    assert seq.shape == (2, vals["max_length"][0])

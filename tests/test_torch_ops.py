@@ -225,9 +225,9 @@ def test_shape_ops():
 
 
 def test_unported_op_names_the_port():
-    # com.microsoft's contrib set (ops_contrib.py) is not ported yet.
+    # A com.microsoft name that neither package lowers.
     with pytest.raises(NotImplementedError, match="birdnet_tpu_torch"):
-        tops.get_lowering("FusedConv", "com.microsoft")
+        tops.get_lowering("DecoderMaskedMultiHeadAttention", "com.microsoft")
 
 
 def _run_axes_op(op_type, opset, x, axes_input, attrs, dtype=None):

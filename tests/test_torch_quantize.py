@@ -2,7 +2,9 @@
 tiny BirdNET v2.4 files (``save_tiny``'s size) in both frontend forms: the
 same calibration statistics, the same quantized graph and tensors given the
 same statistics, the same int8 forward, and ClassifierBuilder.int8's
-calibration forms on the CPU."""
+calibration forms on the CPU; and on tiny BirdNET v3.0 and Perch v2 files
+in both frontend forms, the int8 forward and the int8 stream
+(``test_int8_v30_and_perch_match_jax``)."""
 
 import numpy as np
 import pytest
@@ -16,7 +18,7 @@ from birdnet_tpu.compiler import importer as jimp  # noqa: E402
 from birdnet_tpu.compiler import quantize as jq  # noqa: E402
 from birdnet_tpu_torch.compiler import importer as timp  # noqa: E402
 from birdnet_tpu_torch.compiler import quantize as tq  # noqa: E402
-from birdnet_tpu_torch.models import birdnet_v24  # noqa: E402
+from birdnet_tpu_torch.models import birdnet_v24, birdnet_v30, perch_v2  # noqa: E402
 from birdnet_tpu_torch.onnx import proto as P  # noqa: E402
 
 LABELS = [f"s{i}" for i in range(32)]
@@ -187,6 +189,101 @@ def test_builder_int8_calibration_forms(tiny_path, calibration):
     res = clf.predict(_segments(1)[0])
     assert len(res.predictions) > 0 and np.isfinite(res.raw_scores).all()
     assert res.raw_scores.shape == (32,)
+
+
+# v3.0 and Perch (tests/test_torch_families.py's tiny files): one
+# JAX-quantized model through both packages' interpreters at fp32 (the JAX
+# side eagerly, as its forward runs), every integer tensor compared. The conv
+# forms agree code for code and their logits within FAMILY_INT8_TOL of the
+# logits' scale. In the STFT forms the frontend's float sums run in another
+# order, and its QuantizeLinear can move a code by one where the two
+# packages' x / scale fall on either side of a half-integer: that is the first
+# integer tensor to differ, and each of its moved codes sits at such a tie.
+# From the JAX package's codes there on, the port's logits are within
+# FAMILY_INT8_TOL; as computed, within FAMILY_INT8_TIE_TOL, set from the
+# readings on these inputs (perch-stft 3.19e-3 with 4 of 190,848 codes
+# moved, v30-stft 1.31e-3 with 1). Each package calibrating for itself, the
+# streamed top-3 equal and confidences within FAMILY_STREAM_TOL.
+FAMILY_INT8_TOL = 2e-3
+FAMILY_INT8_TIE_TOL = 4e-3
+FAMILY_STREAM_TOL = 5e-3
+FAMILIES = {"v30": (birdnet_v30, 10, 32, 1), "perch": (perch_v2, 12, 48, 2)}
+
+
+def _first_code_difference(graph, tenv, jenv):
+    """(index, node, output name) of the first node whose integer output
+    differs between the two packages' environments, or None."""
+    for k, node in enumerate(graph.node):
+        for name in filter(None, node.output):
+            a, b = np.asarray(tenv[name]), np.asarray(jenv[name])
+            if a.dtype.kind in "iu" and not np.array_equal(a, b):
+                return k, node, name
+    return None
+
+
+@pytest.mark.parametrize("family,frontend", [(f, fe) for f in FAMILIES
+                                             for fe in ("conv", "stft")])
+def test_int8_v30_and_perch_match_jax(tmp_path, family, frontend):
+    module, n, emb, seed = FAMILIES[family]
+    path = str(tmp_path / f"{family}_{frontend}.onnx")
+    module.save(path, num_species=n, embedding_dim=emb, width=0.1, depth=1, seed=seed,
+                frontend=frontend)
+    calibration = [_segments(4, count=160_000, seed=1)]
+    model = jq.quantize_model(jimp.import_onnx(path), calibration)
+    x = _segments(3, count=160_000, seed=9)
+    (name,) = model.input_names
+    jenv = {**model.consts, **model.params, name: x}
+    want = np.asarray(jimp.interpret_graph(model.graph, model.opset, "fp32", jenv,
+                                           model.output_names)[-1])
+    params = timp.params_to_torch(model.params, "cpu")
+    tenv = {**timp.consts_to_device(model.consts, "cpu", model.graph), **params,
+            name: torch.from_numpy(x)}
+    got = timp.interpret_graph(model.graph, model.opset, "fp32", tenv, model.output_names,
+                               "cpu")[-1].numpy()
+    forward = timp.make_forward(model, "fp32", "cpu")(params, torch.from_numpy(x))[-1]
+    np.testing.assert_array_equal(forward.numpy(), got)
+    assert got.shape == want.shape == (3, n)
+    np.testing.assert_array_equal(got.argmax(1), want.argmax(1))
+    scale = np.abs(want).max()
+    first = _first_code_difference(model.graph, tenv, jenv)
+    if frontend == "conv":
+        assert first is None
+        assert np.abs(got - want).max() <= FAMILY_INT8_TOL * scale
+    else:
+        k, node, out = first
+        assert node.op_type == "QuantizeLinear"
+        codes_t, codes_j = np.asarray(tenv[out]).astype(np.int64), np.asarray(jenv[out])
+        moved = np.argwhere(codes_t != codes_j)
+        assert np.abs(codes_t - codes_j).max() == 1
+        q_scale = np.float32(np.asarray(jenv[node.input[1]]))
+        pre_t = np.asarray(tenv[node.input[0]]).astype(np.float32) / q_scale
+        pre_j = np.asarray(jenv[node.input[0]]).astype(np.float32) / q_scale
+        for i in map(tuple, moved):
+            lo, hi = sorted((pre_t[i], pre_j[i]))
+            assert np.floor(hi - 0.5) + 0.5 >= lo, (i, pre_t[i], pre_j[i])
+        assert np.abs(got - want).max() <= FAMILY_INT8_TIE_TOL * scale
+        # The rest of the graph from the JAX package's codes.
+        env = {**tenv, out: torch.from_numpy(np.array(jenv[out]))}
+        tail = P.GraphProto(name="tail", node=list(model.graph.node[k + 1:]))
+        from_codes = timp.interpret_graph(tail, model.opset, "fp32", env,
+                                          model.output_names, "cpu")[-1].numpy()
+        assert np.abs(from_codes - want).max() <= FAMILY_INT8_TOL * scale
+
+    labels = [f"s{i}" for i in range(n)]
+    pcm = (np.random.default_rng(5).normal(size=32_000 * 12) * 3000).astype(np.int16)
+    rows = []
+    for pkg in (tbt, jbt):
+        b = pkg.Classifier.builder().model_path(path).labels(labels).top_k(3)
+        b = b.with_device("cpu") if pkg is tbt else b
+        rows.append(b.int8(calibration_segments=calibration).build().analyze_samples(pcm))
+    mine, theirs = rows
+    assert len(mine) == len(theirs) == 3
+    for (tt, preds), (tj, ref) in zip(mine, theirs):
+        assert tt == pytest.approx(tj)
+        assert [p.index for p in preds] == [p.index for p in ref]
+        np.testing.assert_allclose([p.confidence for p in preds],
+                                   [p.confidence for p in ref], rtol=0,
+                                   atol=FAMILY_STREAM_TOL)
 
 
 def test_quantize_rejects_model_without_layers():

@@ -1,6 +1,7 @@
 """The port's op registries against the JAX package's: the core table
-(all of its names), the ai.onnx.ml domain (the JAX package's names and the
-ONNX-ML opset-5 table), the ai.onnx opset-24 table, and the seven
+(all of its names), the (domain, name) table (the ai.onnx.ml names, with
+the ONNX-ML opset-5 table, and the com.microsoft names), the ai.onnx
+opset-24 table, and the seven
 com.microsoft spellings that fall back to the core table
 (``_GRADUATED_MS_OPS``), each as a one-node graph through both packages
 on the CPU (tests/_torch_dual.py).
@@ -32,9 +33,16 @@ def test_ml_names_are_the_jax_ml_names_and_the_opset_5_table():
     from _onnx_spec_table import SPEC_AI_ONNX_ML_OPSET5
 
     ml = [n for n in jops.supported_contrib_ops() if n.startswith("ai.onnx.ml.")]
-    assert tops.supported_contrib_ops() == ml
+    assert [n for n in tops.supported_contrib_ops() if n.startswith("ai.onnx.ml.")] == ml
     assert len(ml) == 19
     assert {n.removeprefix("ai.onnx.ml.") for n in ml} == set(SPEC_AI_ONNX_ML_OPSET5)
+
+
+def test_contrib_table_is_the_jax_contrib_table():
+    """The whole (domain, name) table: the 19 ai.onnx.ml names and the 44
+    com.microsoft names of the JAX package's ops_contrib.py."""
+    assert tops.supported_contrib_ops() == jops.supported_contrib_ops()
+    assert len([n for n in tops.supported_contrib_ops() if n.startswith(f"{MS}.")]) == 44
 
 
 def test_core_names_cover_the_opset_24_table():
@@ -86,8 +94,11 @@ def test_graduated_com_microsoft_spelling_matches_jax(op_type):
 
 
 def test_other_com_microsoft_names_do_not_fall_back():
-    """A contrib op whose core namesake has another contract (Attention,
-    Unique) is not served from the core table."""
-    for name in ("Attention", "Unique"):
-        with pytest.raises(NotImplementedError, match=f"'{MS}.{name}'"):
-            tops.get_lowering(name, MS)
+    """A contrib op whose core namesake has another contract is not served
+    from the core table: com.microsoft Attention takes its contrib lowering
+    (packed-QKV self-attention), and com.microsoft Unique, which neither
+    package lowers, raises."""
+    assert tops.get_lowering("Attention", MS) is tops._CONTRIB_REGISTRY[(MS, "Attention")]
+    assert tops.get_lowering("Attention", MS) is not tops.get_lowering("Attention")
+    with pytest.raises(NotImplementedError, match=f"'{MS}.Unique'"):
+        tops.get_lowering("Unique", MS)
