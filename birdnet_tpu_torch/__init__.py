@@ -31,7 +31,9 @@ upstream blob list by file name rather than by an absolute path.
 ``compiler/quantize`` is a copy whose calibration (``_collect_absmax``)
 runs on the port's interpreter on an explicit device; ``utils/audio_io`` a
 copy whose native decoder builds into a file of its own and renames it
-into place; ``serve/batcher`` and ``serve/__init__`` copies whose
+into place; ``utils/activation_diff`` a copy whose
+``capture_activations`` runs the port's interpreter on an explicit
+device; ``serve/batcher`` and ``serve/__init__`` copies whose
 docstrings describe the card; ``cli`` and ``serve/server`` copies whose
 device handling is torch's (the test lists each edit).
 

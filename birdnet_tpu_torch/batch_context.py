@@ -28,9 +28,14 @@ without passing through them.
 
 On the host the context keeps the same staging buffers (not pinned) and
 runs the plain eager forward on the padded batch, with no graph. Over a
-mesh (``with_mesh``) it keeps its pinned staging and runs the engine's
-sharded step eagerly, with no graph: capturing the mesh's cells is later
-work.
+mesh of cards (``with_mesh``) it replays the engine's program of its
+maximum batch (``ShardedEngine.compiled``: one graph per card and the
+merge, parallel/graphs.py), captured when the context is made, with the
+row-mask program too under ``precompile_row_mask`` (the two executables
+the JAX context compiles); the program copies the pinned staging buffer
+straight into its per-card inputs. A program that cannot be captured
+raises :class:`InferenceError` here too, a forward that reads the card on
+the host included. Over a host mesh it runs the sharded step eagerly.
 
 Reference quirks preserved: Perch v2 rejected (batch_context.rs:107-114),
 batch-exceeds-max error (batch_context.rs:191-196), per-segment size errors
@@ -98,12 +103,27 @@ class BatchInferenceContext:
         self._buffers = tuple(t.numpy() for t in self._staging)
         self._active = 0
         self._staged = 0
-        # Every per-request species mask goes through one device buffer
-        # that the graph reads, so ``precompile_row_mask`` (the JAX
-        # package's second, masked executable) needs nothing more here.
-        sharded = getattr(engine, "mesh", None) is not None
-        self._graph = (_CapturedBatch(engine, shape, self._with_embeddings)
-                       if on_cuda and not sharded else None)
+        self._sharded = getattr(engine, "mesh", None) is not None
+        if self._sharded:
+            self._graph = None
+            if engine._on_card:
+                # The engine's programs of this batch, as the JAX context
+                # precompiles its executables.
+                keys = [False, True] if precompile_row_mask else [False]
+                programs = [engine.compiled(self._max_batch_size, self._with_embeddings,
+                                            donate=True, with_row_mask=masked)
+                            for masked in keys]
+                if any(p.eager for p in programs):
+                    raise InferenceError(
+                        "CUDA graph capture of the mesh step failed: the forward "
+                        "reads the card on the host")
+                self._graph = programs[0]
+        else:
+            # Every per-request species mask goes through one device buffer
+            # that the graph reads, so ``precompile_row_mask`` (the JAX
+            # package's second, masked executable) needs nothing more here.
+            self._graph = (_CapturedBatch(engine, shape, self._with_embeddings)
+                           if on_cuda else None)
 
     # -- introspection (batch_context.rs:147-159 analog) -------------------
 
@@ -112,9 +132,9 @@ class BatchInferenceContext:
         return self._max_batch_size
 
     @property
-    def graph(self) -> Optional["_CapturedBatch"]:
-        """The captured forward on the card; None on the host and over a
-        mesh."""
+    def graph(self):
+        """The captured forward on the card (over a mesh, the engine's
+        program of the context's batch); None on the host."""
         return self._graph
 
     def input_buffer_bytes(self) -> int:
@@ -178,6 +198,14 @@ class BatchInferenceContext:
         logits [n,N], embeddings [n,E] or None), as
         ``InferenceEngine.run_batch`` does."""
         with self._lock:
+            if self._sharded:
+                # Over cards the program stages the pinned buffer itself.
+                return self._engine.run_batch(
+                    self._staging[self._staged] if self._graph is not None
+                    else self._buffers[self._staged], options=options,
+                    with_embeddings=self._with_embeddings, donate=True,
+                    row_masks=row_masks, n_valid=n_valid,
+                )
             if self._graph is None:
                 return self._engine.run_batch(
                     self._buffers[self._staged], options=options,
@@ -192,6 +220,7 @@ class _CapturedBatch:
     captured once into a CUDA graph over static device buffers."""
 
     def __init__(self, engine, shape, with_embeddings: bool):
+        from .ops.cuda.build import holding
         from .ops.topk import fused_sigmoid_topk
 
         self._engine = engine
@@ -225,7 +254,9 @@ class _CapturedBatch:
             torch.cuda.current_stream(device).wait_stream(side)
             torch.cuda.synchronize(device)
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph), torch.inference_mode():
+            # The graph keeps the cached operands it reads (``build.hold``).
+            with holding() as self._held, torch.cuda.graph(self.graph), \
+                    torch.inference_mode():
                 self.outs = step()
         except Exception as e:  # noqa: BLE001 - capture refused (a host sync,
             # an unsupported call): the context cannot exist on the card

@@ -26,8 +26,10 @@ Differences from the JAX package:
   eager forward.
 - ``with_mesh`` runs one process over a :class:`~birdnet_tpu_torch.parallel.Mesh`
   of devices (:mod:`birdnet_tpu_torch.parallel`): the mesh's controller
-  device (``devices[0, 0]``) validates the model and calibrates int8, and
-  a batch context over a mesh runs the sharded step without a CUDA graph.
+  device (``devices[0, 0]``) validates the model and calibrates int8; over
+  a mesh of cards ``predict_batch``, a batch context and the stream replay
+  the mesh's programs, captured as CUDA graphs once per key
+  (:mod:`birdnet_tpu_torch.parallel.graphs`).
 """
 
 from __future__ import annotations
@@ -491,8 +493,9 @@ class Classifier:
         classifier.rs:757-784 → batch_context.rs:69-122). On the card it
         captures the forward at ``max_batch_size`` into a CUDA graph and
         raises :class:`InferenceError` if the capture fails.
-        ``precompile_row_mask`` is accepted for the JAX package's signature:
-        the one graph already reads per-request species masks."""
+        ``precompile_row_mask``: on one card the one graph already reads
+        per-request species masks; over a mesh of cards it also captures
+        the mesh's row-mask program, as the JAX context compiles it."""
         return BatchInferenceContext(
             engine=self._engine,
             config=self._config,

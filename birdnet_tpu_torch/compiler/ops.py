@@ -266,8 +266,10 @@ def _on_device(x, device) -> torch.Tensor:
         arr = np.ascontiguousarray(arr)
     if arr.nbytes > _SHARED_UPLOAD_MAX:
         return torch.from_numpy(arr.copy()).to(device)
-    return _device_array(arr.tobytes(), arr.dtype.str, arr.shape,
-                         torch.device(device))
+    from ..ops.cuda.build import hold
+
+    return hold(_device_array(arr.tobytes(), arr.dtype.str, arr.shape,
+                              torch.device(device)))
 
 
 def _tensor(ctx: OpContext, x, device=None) -> torch.Tensor:
@@ -2639,11 +2641,13 @@ def _stage_prefix_tables(ctx, stem_w, stem_b, block_args, k, device):
 
     sources = tuple(_tensor(ctx, v, device) for v in (stem_w, stem_b) + block_args[:10 * k])
     key = (k, str(device)) + tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in sources)
+    from ..ops.cuda.build import hold
+
     with _PREFIX_TABLES_LOCK:
         hit = _PREFIX_TABLES.get(key)
         if hit is not None:
             _PREFIX_TABLES.move_to_end(key)
-            return hit[0]
+            return hold(hit[0])
     strides = [int(s) for s in ctx.attr("strides")]
     residuals = [int(r) for r in ctx.attr("residuals")]
     blocks, weights = [], []
@@ -2660,7 +2664,7 @@ def _stage_prefix_tables(ctx, stem_w, stem_b, block_args, k, device):
         _PREFIX_TABLES[key] = (tables, sources)
         while len(_PREFIX_TABLES) > _PREFIX_TABLES_MAX:
             _PREFIX_TABLES.popitem(last=False)
-    return tables
+    return hold(tables)
 
 
 @op("_FusedStagePrefix")
@@ -3351,7 +3355,9 @@ def _mel_weight_matrix(ctx, num_mel_bins, dft_length, sample_rate,
                        lower_edge_hertz, upper_edge_hertz):
     """Triangular mel filterbank per the ONNX spec (HTK mel scale), built
     once per device and geometry."""
-    return [_mel_matrix(
+    from ..ops.cuda.build import hold
+
+    return [hold(_mel_matrix(
         _static_int(num_mel_bins, "num_mel_bins"),
         _static_int(dft_length, "dft_length"),
         _static_int(sample_rate, "sample_rate"),
@@ -3359,7 +3365,7 @@ def _mel_weight_matrix(ctx, num_mel_bins, dft_length, sample_rate,
         float(_static_array(upper_edge_hertz, "upper_edge_hertz").reshape(-1)[0]),
         int(ctx.attr("output_datatype", 1)),
         ctx.device,
-    )]
+    ))]
 
 
 @functools.lru_cache(maxsize=8)
@@ -3407,7 +3413,9 @@ def _stft(ctx, signal, frame_step, window=None, frame_length=None):
     if flen > 4096:
         spec = (torch.fft.rfft if onesided else torch.fft.fft)(frames.float(), dim=-1)
         return [torch.stack([spec.real, spec.imag], dim=-1).to(x.dtype)]
-    basis = _dft_basis(flen, bins, x.device)
+    from ..ops.cuda.build import hold
+
+    basis = hold(_dft_basis(flen, bins, x.device))
     frames = frames.float()
     if ctx.precision in ("fast", "bf16"):
         frames = frames.to(torch.bfloat16).float()

@@ -364,19 +364,21 @@ def _draw(kind: str, key: int, shape, dtype: torch.dtype) -> torch.Tensor:
 def _noise(ctx, kind: str, shape, dtype: torch.dtype, device) -> torch.Tensor:
     """The node's noise on ``device``: drawn on the host once, uploaded
     once, shared (callers never write to it)."""
+    from ..ops.cuda.build import hold
+
     key = (_rand_key(ctx), kind, tuple(int(s) for s in shape), dtype,
            torch.device(device))
     with _NOISE_LOCK:
         hit = _NOISE.get(key)
         if hit is not None:
             _NOISE.move_to_end(key)
-            return hit
+            return hold(hit)
     t = _draw(kind, key[0], key[2], dtype).to(key[4])
     with _NOISE_LOCK:
         _NOISE[key] = t
         while len(_NOISE) > _NOISE_MAX:
             _NOISE.popitem(last=False)
-    return t
+    return hold(t)
 
 
 def _rand_dtype(ctx, default=torch.float32) -> torch.dtype:

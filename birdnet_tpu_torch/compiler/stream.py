@@ -237,6 +237,8 @@ class _TileProgram:
         self.graphs = []
         self.outs = []
         self.launches = []
+        # Per graph, the cached operands it reads (``build.hold``).
+        self.held = []
         self.host_reads = 0
         if device.type == "cuda" and eng._use_graphs:
             self._capture([_Ring.view(buf, self) for buf in eng._ring.devices])
@@ -267,7 +269,7 @@ class _TileProgram:
         the body read the card on the host, the key's graph over each
         tile audio of ``audios``."""
         from ..batch_context import _WARMUP_CALLS
-        from ..ops.cuda.build import add_launches, tally_launches
+        from ..ops.cuda.build import add_launches, holding, tally_launches
 
         eng = self._eng
         device = eng.device
@@ -284,7 +286,7 @@ class _TileProgram:
                 return
             for audio in audios:
                 graph = torch.cuda.CUDAGraph()
-                with tally_launches() as captured:
+                with tally_launches() as captured, holding() as held:
                     with torch.cuda.graph(graph, pool=eng._graph_pool, stream=side,
                                           capture_error_mode="thread_local"), \
                             torch.inference_mode():
@@ -292,6 +294,7 @@ class _TileProgram:
                 # The capture launched nothing: its counts move to the replays.
                 add_launches(captured, -1)
                 self.graphs.append(graph)
+                self.held.append(held)
                 self.outs.append(outs)
                 self.launches.append(tuple(captured))
         except InferenceError:

@@ -76,6 +76,33 @@ def add_launches(tally, times: int = 1) -> None:
             launches[key] += times
 
 
+_holds = threading.local()
+
+
+def hold(obj):
+    """``obj`` (device memory that a lowering or a kernel wrapper takes
+    from a cache of its own), noted for the CUDA graph this thread is
+    capturing, if any (:func:`holding`): a graph reads its operands at
+    their addresses on every replay, so it keeps them alive, and a cache
+    may drop them while the graph lives."""
+    held = getattr(_holds, "current", None)
+    if held is not None:
+        held.append(obj)
+    return obj
+
+
+@contextlib.contextmanager
+def holding():
+    """Collect what :func:`hold` notes in this thread inside the block, as a
+    list for the graph captured there to keep."""
+    outer = getattr(_holds, "current", None)
+    _holds.current = held = []
+    try:
+        yield held
+    finally:
+        _holds.current = outer
+
+
 class KernelBuildError(RuntimeError):
     """The CUDA kernels could not be compiled or loaded."""
 

@@ -224,15 +224,18 @@ _OPERANDS_LOCK = threading.Lock()
 
 def _cached(match, make):
     """The operands of the newest entry whose key ``match`` accepts; else
-    ``make()``'s ``(key, operands)``, kept."""
+    ``make()``'s ``(key, operands)``, kept (and held by a graph being
+    captured: ``build.hold``)."""
+    from .build import hold
+
     with _OPERANDS_LOCK:
         for key, operands in reversed(_OPERANDS):
             if match(key):
-                return operands
+                return hold(operands)
         key, operands = make()
         _OPERANDS.append((key, operands))
         del _OPERANDS[:-_OPERANDS_KEPT]
-        return operands
+        return hold(operands)
 
 
 def _packed_once(weights: torch.Tensor, name: str, pack) -> torch.Tensor:

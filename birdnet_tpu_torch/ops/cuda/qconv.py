@@ -143,16 +143,18 @@ _PACKS_LOCK = threading.Lock()
 def _packed_weights(w: torch.Tensor) -> torch.Tensor:
     if w.is_inference():
         return pack_weights(w)
+    from .build import hold
+
     root = w if w._base is None else w._base
     key = (root._version, w.storage_offset(), tuple(w.shape), tuple(w.stride()))
     with _PACKS_LOCK:
         for (ref, k), pack in reversed(_PACKS):
             if ref() is root and k == key:
-                return pack
+                return hold(pack)
         pack = pack_weights(w)
         _PACKS.append(((weakref.ref(root), key), pack))
         del _PACKS[:-_PACKS_KEPT]
-        return pack
+        return hold(pack)
 
 
 def qconv1x1_requant(x: torch.Tensor, w: torch.Tensor,

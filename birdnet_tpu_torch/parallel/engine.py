@@ -9,16 +9,28 @@ parallel/sharding.py for the layout rules), and audio is copied to each
 device.
 
 One process drives the mesh, as in the JAX package: a step issues every
-cell's forward and top-K in turn without a host sync and gathers the
-results on the controller device (``devices[0, 0]``); ``run_batch`` then
-waits for one CUDA event per card, honouring the options' timeout and
-cancellation. Differences that follow from eager PyTorch:
+cell's forward and top-K without a host sync and gathers the results on
+the controller device (``devices[0, 0]``); ``run_batch`` then waits for one
+CUDA event per card, honouring the options' timeout and cancellation.
 
-- ``compiled(...)`` returns a cached step callable per key; nothing is
-  traced or compiled, and ``donate`` is accepted and ignored.
+Where the JAX engine compiles a program per key, this one keeps, on a mesh
+whose every cell is a card, a program per key captured as CUDA graphs
+(parallel/graphs.py): ``compiled(bucket, with_embeddings, donate,
+with_row_mask)`` a :class:`~.graphs._MeshBatch` (static per-card inputs,
+one graph per card and the merge; a one-card mesh's step is one replay),
+and per streaming key ``(tile, step, dtype, with_embeddings, with_mask)`` a
+:class:`~.graphs._MeshTiles` over per-card rings of tile buffers, as the
+single-device stream keeps its keys (compiler/stream.py). Each cache keeps
+at most ``compiler.stream.MAX_PROGRAMS`` keys, the least recently used
+dropped first. On the host (or a mesh that names it) the step runs
+eagerly, call by call. Differences that follow:
+
+- ``donate`` is accepted and ignored (the key leaves it out), and the key
+  counts embeddings only where the family has them.
 - Batches pad to a multiple of the data axis, not to a power of two.
-- The stream runs its tiles eagerly through the same step (no CUDA graph);
-  ``analyze`` is compiler/stream.streaming_analyze's superchunk loop.
+- ``analyze`` is compiler/stream.streaming_analyze's superchunk loop; the
+  host loops over a superchunk's tiles and replays the key's graphs per
+  tile, the next tile's upload overlapping the current replay.
 
 Selected via ``Classifier.builder().with_mesh(...)``.
 """
@@ -26,6 +38,7 @@ Selected via ``Classifier.builder().with_mesh(...)``.
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -36,6 +49,7 @@ from ..compiler.importer import ImportedModel
 from ..errors import InferenceCancelledError, InferenceError, InferenceTimeoutError
 from ..inference_options import InferenceOptions
 from ..types import ModelConfig
+from .graphs import _MeshBatch, _MeshTiles, rows_on_host
 from .sharding import Mesh, _Cells
 
 
@@ -88,9 +102,31 @@ class ShardedEngine:
         # (d, 0) run (parallel/sharding.py).
         self.head_sharded = self._cells.head.sharded
         self.params = self._cells.shard(self._cells.head.model.params)
-        self._compiled: Dict[Tuple, object] = {}
+        # The graphs run where every cell is a card; per card a side stream
+        # for warm calls and captures, a copy stream for the rings' uploads
+        # and a graph pool shared by the card's graphs.
+        self._on_card = all(dev.type == "cuda" for dev in mesh.devices.flat)
+        cards = self._cells.cuda_devices if self._on_card else []
+        self._sides = {dev: torch.cuda.Stream(dev) for dev in cards}
+        self._copy_streams = {dev: torch.cuda.Stream(dev) for dev in cards}
+        self._pools = {dev: torch.cuda.graph_pool_handle() for dev in cards}
+        self._rings: Optional[Dict[torch.device, object]] = None
+        self._compiled: "OrderedDict[Tuple, object]" = OrderedDict()
+        self._programs: "OrderedDict[Tuple, _MeshTiles]" = OrderedDict()
         self._lock = threading.Lock()
         self._run_lock = threading.Lock()
+
+    def _make_room(self, cache: OrderedDict) -> None:
+        """Drop the least recently used keys of ``cache`` until one more
+        fits, after the cards finish what may read them."""
+        from ..compiler.stream import MAX_PROGRAMS
+
+        if len(cache) < MAX_PROGRAMS:
+            return
+        for dev in self._cells.cuda_devices:
+            torch.cuda.synchronize(dev)
+        while len(cache) >= MAX_PROGRAMS:
+            cache.popitem(last=False)
 
     # -- batched path (InferenceEngine-compatible) -------------------------
 
@@ -104,32 +140,30 @@ class ShardedEngine:
         donate: bool = False,
         with_row_mask: bool = False,
     ):
-        """The step callable for a batch bucket (cached; bucket is
-        normalized up to a data-axis multiple so warmup/context keys match
-        run_batch's): ``fn(params, x)`` or, ``with_row_mask``,
-        ``fn(params, x, row_mask)`` on a host float32 ``[bucket, S]`` batch
-        and bool ``[bucket, num_species]`` masks, returning (conf, idx,
-        logits, embeddings or None) on the controller device."""
+        """The program of a batch bucket (cached; bucket is normalized up to
+        a data-axis multiple so warmup/context keys match run_batch's): on
+        the card a :class:`~.graphs._MeshBatch`, captured here on first
+        use (a failed capture raises :class:`InferenceError`); on the host
+        an :class:`_EagerBatch`. Either is called as ``fn(x)`` or
+        ``fn(x, row_mask)`` on a host float32 ``[bucket, S]`` batch and
+        bool ``[bucket, num_species]`` masks, returning (conf, idx, logits,
+        embeddings or None) on the controller device, and ``fn.run(x,
+        row_mask, n_valid, options)`` is one whole call."""
         bucket = -(-bucket // self.dp) * self.dp
-        key = ("batch", bucket, with_embeddings, donate, with_row_mask)
+        emit_emb = with_embeddings and self.embed_index is not None
+        key = (bucket, emit_emb, with_row_mask)
         with self._lock:
-            fn = self._compiled.get(key)
-            if fn is None:
-                cells, k = self._cells, self.top_k
-                emit_emb = with_embeddings and self.embed_index is not None
-                rows = bucket // self.dp
-                devices = set(cells.devices.flat)
-
-                def fn(params, x, row_mask=None):
-                    host = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-                    placed = {device: host.to(device, non_blocking=True)
-                              for device in devices}
-                    return cells.run(
-                        params, lambda d, device: placed[device][d * rows:(d + 1) * rows],
-                        k, emit_emb, row_mask=row_mask)
-
-                self._compiled[key] = fn
-            return fn
+            program = self._compiled.get(key)
+            if program is not None:
+                self._compiled.move_to_end(key)
+                return program
+            self._make_room(self._compiled)
+            if self._on_card:
+                program = _MeshBatch(self, bucket, emit_emb, with_row_mask)
+            else:
+                program = _EagerBatch(self, bucket, emit_emb)
+            self._compiled[key] = program
+            return program
 
     def run_batch(
         self,
@@ -149,47 +183,111 @@ class ShardedEngine:
         bkt = bucket if bucket is not None else self._batch_bucket(segments.shape[0])
         if bkt % self.dp:
             bkt = -(-bkt // self.dp) * self.dp
-        fn = self.compiled(
-            bkt, with_embeddings, donate, with_row_mask=row_masks is not None
-        )
-        if segments.shape[0] < bkt:
-            pad = np.zeros(
-                (bkt - segments.shape[0], segments.shape[1]), dtype=np.float32
-            )
-            segments = np.concatenate([segments, pad], axis=0)
         try:
+            fn = self.compiled(
+                bkt, with_embeddings, donate, with_row_mask=row_masks is not None
+            )
             rows = None
             if row_masks is not None:
                 rows = np.ones((bkt, self.config.num_species), dtype=bool)
                 rows[:b] = row_masks
-            with torch.inference_mode():
-                conf, idx, logits, emb = fn(self.params, segments, rows)
-            _wait(self._cells.done(), options)
-            conf, idx, logits = (_host(t[:b]) for t in (conf, idx, logits))
-            emb = _host(emb[:b]) if emb is not None else None
+            return fn.run(segments, rows, b, options)
         except (InferenceCancelledError, InferenceTimeoutError, InferenceError):
             raise
         except Exception as e:  # noqa: BLE001 - device runtime failures (OOM, …)
             raise InferenceError(str(e)) from e
-        return conf, idx, logits, emb
 
     # -- streaming path (StreamingEngine-compatible) -----------------------
 
     def _program(self, step: int, dtype, with_embeddings: bool = False,
-                 with_mask: bool = False) -> Tuple:
-        """The streaming key (the stream's tiles run eagerly here)."""
-        return self.tile, step, np.dtype(dtype), with_embeddings
+                 with_mask: bool = False) -> _MeshTiles:
+        """The streaming key's program, made (on the card: captured) on first
+        use. Called under ``_run_lock``, with no work of the engine in
+        flight but that of an abandoned (timed-out, cancelled) call."""
+        dtype = np.dtype(dtype)
+        key = (self.tile, step, dtype.name, with_embeddings, with_mask)
+        program = self._programs.get(key)
+        if program is not None:
+            self._programs.move_to_end(key)
+            return program
+        if self._on_card:
+            self._ensure_rings()
+        self._make_room(self._programs)
+        program = self._programs[key] = _MeshTiles(
+            self, self.tile, step, dtype, with_embeddings, with_mask)
+        return program
 
-    def _run_tiles(self, samples: torch.Tensor, lo: int, n_tiles: int, program,
+    def _ensure_rings(self) -> None:
+        """Per card a ring of tile buffers wide enough for the span of its
+        data indices at the current ``tile`` (float32, the widest dtype); a
+        larger tile replaces the rings and drops every key, whose graphs
+        read the old buffers."""
+        from ..compiler.stream import _MAX_ITEMSIZE, _Ring
+
+        rows = self.tile // self.dp
+        S = self.config.sample_count
+        need = {dev: count * rows * S * _MAX_ITEMSIZE
+                for dev, (_, count) in self._cells.spans().items()}
+        if self._rings is not None and all(
+                self._rings[dev].nbytes >= n for dev, n in need.items()):
+            return
+        for dev in self._cells.cuda_devices:
+            torch.cuda.synchronize(dev)
+        self._programs.clear()
+        self._rings = None
+        self._rings = {dev: _Ring(n, dev) for dev, n in need.items()}
+
+    @property
+    def programs(self) -> Dict[Tuple, _MeshTiles]:
+        """The streaming programs the engine keeps, least recently used
+        first, by key ``(tile, step, dtype name, with_embeddings,
+        with_mask)``."""
+        return dict(self._programs)
+
+    def _run_tiles(self, samples: torch.Tensor, lo: int, n_tiles: int, program: _MeshTiles,
                    run_mask):
         """One superchunk: ``n_tiles`` tiles from sample ``lo`` of the host
-        recording ``samples``. Each tile's span is copied to every device of
-        the mesh and each cell frames, scales and casts its rows. Returns
-        ``(conf [n_tiles*tile, k], idx, [emb])`` on the controller and the
-        step's events (None on the host)."""
+        recording ``samples``. On the card each tile's span of each card's
+        data indices goes through that card's ring (staged on the host,
+        uploaded on the card's copy stream) and the key's step of the slot
+        runs; on the host :meth:`_eager_tiles`. Returns ``(conf
+        [n_tiles*tile, k], idx, [emb])`` on the controller and the step's
+        events (None on the host)."""
+        if not program.steps:
+            return self._eager_tiles(samples, lo, n_tiles, program, run_mask)
+        tile, step = program.tile, program.step
+        compute = {dev: torch.cuda.current_stream(dev) for dev in program.layouts}
+        outs = None
+        with torch.inference_mode():
+            if program.mask is not None:
+                n = self.config.num_species
+                for mask in program.mask.values():
+                    mask[:n].copy_(run_mask)
+            for t in range(n_tiles):
+                start = lo + t * tile * step
+                for dev, layout in program.layouts.items():
+                    i = self._rings[dev].stage(samples, start + layout.offset, layout)
+                for dev, layout in program.layouts.items():
+                    self._rings[dev].upload(i, layout, self._copy_streams[dev], compute[dev])
+                conf, idx, _, emb = program.steps[i].run()
+                for dev in program.layouts:
+                    self._rings[dev].consumed[i].record(compute[dev])
+                result = (conf, idx) + ((emb,) if program.with_embeddings else ())
+                if outs is None:
+                    outs = tuple(r.new_empty((n_tiles * tile,) + tuple(r.shape[1:]))
+                                 for r in result)
+                for dest, r in zip(outs, result):
+                    dest[t * tile:(t + 1) * tile].copy_(r)
+        return outs, self._cells.done()
+
+    def _eager_tiles(self, samples: torch.Tensor, lo: int, n_tiles: int, program, run_mask):
+        """The superchunk run eagerly, tile by tile: each tile's span is
+        copied to every device of the mesh and each cell frames, scales and
+        casts its rows (the host's path, and the plain version the card's
+        graphs are held to)."""
         from ..compiler.stream import audio_device_shape, frame_tile, prepare_frames
 
-        tile, step, dtype, with_embeddings = program
+        tile, step, with_embeddings = program.tile, program.step, program.with_embeddings
         S = self.config.sample_count
         span = (tile - 1) * step + S
         rows = tile // self.dp
@@ -239,6 +337,40 @@ class ShardedEngine:
                                      species_mask=species_mask)
 
     def warmup(self, batch_sizes=(1,)) -> None:
-        """Run a zero batch per size (builds the CUDA kernels)."""
+        """Make (on the card: capture) each batch size's program, as the JAX
+        method compiles it."""
         for b in batch_sizes:
-            self.run_batch(np.zeros((b, self.config.sample_count), np.float32))
+            self.compiled(self._batch_bucket(b))
+
+
+class _EagerBatch:
+    """A batch key's step on the host (or a mesh that names it): the
+    cells' forwards issued call by call on ``[bucket, S]`` rows copied to
+    each device."""
+
+    eager = True
+
+    def __init__(self, eng: ShardedEngine, bucket: int, with_embeddings: bool):
+        self._eng = eng
+        self.bucket = bucket
+        self._emb = with_embeddings
+
+    def __call__(self, x, row_mask: Optional[np.ndarray] = None):
+        cells = self._eng._cells
+        rows = self.bucket // cells.dp
+        x = np.asarray(x, np.float32)
+        if x.shape[0] < self.bucket:
+            pad = np.zeros((self.bucket - x.shape[0], x.shape[1]), dtype=np.float32)
+            x = np.concatenate([x, pad], axis=0)
+        host = torch.from_numpy(np.ascontiguousarray(x))
+        placed = {device: host.to(device, non_blocking=True)
+                  for device in set(cells.devices.flat)}
+        with torch.inference_mode():
+            return cells.run(
+                self._eng.params, lambda d, device: placed[device][d * rows:(d + 1) * rows],
+                self._eng.top_k, self._emb, row_mask=row_mask)
+
+    def run(self, x, row_mask, n_valid: int, options):
+        outs = self(x, row_mask)
+        _wait(self._eng._cells.done(), options)
+        return rows_on_host(outs, n_valid)

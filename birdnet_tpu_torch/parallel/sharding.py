@@ -510,53 +510,97 @@ class _Cells:
         cells on the host, whose work is done when it returns)."""
         return _Done(self.cuda_devices) if self.cuda_devices else None
 
-    def run(self, params, frames_of, k: int, with_embeddings: bool = False,
-            row_mask: Optional[np.ndarray] = None, call_mask: Optional[np.ndarray] = None):
-        """One step over every cell, issued without a host sync.
-        ``frames_of(d, device)`` gives data index ``d``'s rows on ``device``.
-        ``row_mask``: bool ``[rows, num_species]`` (host), ``call_mask``: bool
-        ``[num_species]``. Returns, on the controller, (confidences
-        ``[rows, k]``, int32 indices, logits ``[rows, num_species]``,
-        embeddings of the ``m = 0`` cells or None)."""
-        from ..ops.topk import masked_topk, merge_topk
+    @property
+    def running(self):
+        """The running cells ``(d, m)``, in the order a step issues them."""
+        return [(d, m) for d in range(self.dp) for m in self.ms]
+
+    def cell(self, params, frames, d: int, m: int, k: int, with_embeddings: bool, mask):
+        """Cell (d, m)'s forward and top-K on its device (made current by
+        the caller): (logit block, its top-``k`` values and global species
+        indices, or None twice when ``k`` is 0, the embeddings of an
+        ``m = 0`` cell with ``with_embeddings`` or None). ``mask``: the
+        cell's runtime species mask or None."""
+        from ..ops.topk import masked_topk
+
+        device = self.devices[d, m]
+        outs = self._forwards[device, m](params[d, m], frames)
+        block = outs[self.logits_index]
+        emb = outs[self.embed_index] if m == 0 and with_embeddings else None
+        if k == 0:
+            return block, None, None, emb
+        v, i = masked_topk(block, min(k, self.width), self._masks[device, m], mask)
+        return block, v, i + m * self.width, emb
+
+    def merge(self, outs, k: int):
+        """Gather the cells' results (``outs[d, m]`` as :meth:`cell` returns
+        them, on the controller) into (confidences ``[rows, k]``, int32
+        indices, logits ``[rows, num_species]``, embeddings or None)."""
+        from ..ops.topk import merge_topk
 
         n = self.config.num_species
-        pad = self.head.n_padded - n
-        if row_mask is not None and pad:
-            row_mask = np.pad(row_mask, ((0, 0), (0, pad)))
-        if call_mask is not None and pad:
-            call_mask = np.pad(call_mask, (0, pad))
         ctrl = self.controller
         confs, idxs, logits, embs = [], [], [], []
         for d in range(self.dp):
-            vals, cands, blocks = [], [], []
-            for m in self.ms:
-                device = self.devices[d, m]
-                with _current(device):
-                    outs = self._forwards[device, m](params[d, m], frames_of(d, device))
-                    block = outs[self.logits_index]
-                    if m == 0 and with_embeddings:
-                        embs.append(outs[self.embed_index].to(ctrl))
-                    blocks.append(block.to(ctrl))
-                    if k == 0:
-                        continue
-                    rows = self._rows_block(row_mask, call_mask, d, block.shape[0], m, device)
-                    v, i = masked_topk(block, min(k, self.width), self._masks[device, m], rows)
-                    vals.append(v.to(ctrl))
-                    cands.append((i + m * self.width).to(ctrl))
-            logits.append(torch.cat(blocks, dim=1))
+            parts = [outs[d, m] for m in self.ms]
+            logits.append(torch.cat([p[0] for p in parts], dim=1))
+            if parts[0][3] is not None:
+                embs.append(parts[0][3])
             if k:
-                conf, idx = merge_topk(vals, cands, k)
+                conf, idx = merge_topk([p[1] for p in parts], [p[2] for p in parts], k)
             else:
                 conf = logits[-1].new_zeros((logits[-1].shape[0], 0))
                 idx = torch.zeros((logits[-1].shape[0], 0), dtype=torch.int32, device=ctrl)
             confs.append(conf)
             idxs.append(idx)
         logits = torch.cat(logits)
-        if pad:
+        if self.head.n_padded != n:
             logits = logits[:, :n]
         emb = torch.cat(embs) if embs else None
         return torch.cat(confs), torch.cat(idxs), logits, emb
+
+    def step(self, params, frames_of, masks_of, k: int, with_embeddings: bool = False):
+        """One step over every running cell, issued without a host sync:
+        each cell's :meth:`cell` on its device, its results copied to the
+        controller, then :meth:`merge`. ``frames_of(d, m, device)`` and
+        ``masks_of(d, m, device)`` give the cell's rows and runtime mask."""
+        ctrl = self.controller
+        outs = {}
+        for d, m in self.running:
+            device = self.devices[d, m]
+            with _current(device):
+                got = self.cell(params, frames_of(d, m, device), d, m, k, with_embeddings,
+                                masks_of(d, m, device))
+                outs[d, m] = tuple(None if t is None else t.to(ctrl) for t in got)
+        return self.merge(outs, k)
+
+    def run(self, params, frames_of, k: int, with_embeddings: bool = False,
+            row_mask: Optional[np.ndarray] = None, call_mask: Optional[np.ndarray] = None):
+        """:meth:`step` with the runtime masks given on the host.
+        ``frames_of(d, device)`` gives data index ``d``'s rows on ``device``.
+        ``row_mask``: bool ``[rows, num_species]``, ``call_mask``: bool
+        ``[num_species]``. Returns, on the controller, (confidences
+        ``[rows, k]``, int32 indices, logits ``[rows, num_species]``,
+        embeddings of the ``m = 0`` cells or None)."""
+        pad = self.head.n_padded - self.config.num_species
+        if row_mask is not None and pad:
+            row_mask = np.pad(row_mask, ((0, 0), (0, pad)))
+        if call_mask is not None and pad:
+            call_mask = np.pad(call_mask, (0, pad))
+        rows = None if row_mask is None else row_mask.shape[0] // self.dp
+        return self.step(
+            params, lambda d, m, device: frames_of(d, device),
+            lambda d, m, device: self._rows_block(row_mask, call_mask, d, rows, m, device),
+            k, with_embeddings)
+
+    def spans(self) -> Dict[torch.device, Tuple[int, int]]:
+        """Per card of the running cells, ``(first, count)``: the data
+        indices from ``first`` to the last one the card runs, whose rows it
+        is given (all of them on a mesh of one card)."""
+        seen: Dict[torch.device, list] = {}
+        for d, m in self.running:
+            seen.setdefault(self.devices[d, m], []).append(d)
+        return {device: (min(ds), max(ds) - min(ds) + 1) for device, ds in seen.items()}
 
     def _rows_block(self, row_mask, call_mask, d: int, rows: int, m: int, device):
         """The runtime mask of cell (d, m): its rows and columns of

@@ -201,21 +201,36 @@ exits non-zero:
              its launches per step).
 17. mesh    — the parallel tier on meshes that name cuda:0 more than once
              (it checks the layout and the kernels under it, not scaling):
-             full-width v2.4 conv predict_batch(32) on (1, 1), (2, 2) and
-             (1, 4) (6522 species padded to 6524 over 4), fp32 against the
-             single-device classifier (logits within MESH_TOL of their
-             scale, top-K equal, confidences within MESH_TOL) and fast top-1
-             where clear, B2 and B4 launched once per running cell; the
+             full-width v2.4 conv on (1, 1), (2, 2) and (1, 4) (6522
+             species padded to 6524 over 4) at fast: the batch context
+             (precompiled with the row-mask program) and predict_batch(32)
+             replay the bucket's captured program (one replay a call on one
+             card; B2 and B4 launched once per running cell per replay), the
+             ten-minute int16 stream its key's graphs; each against the
+             mesh's eager step bit for bit (predict_batch, the context with
+             row masks, the stream); fp32 against the single-device
+             classifier (logits within MESH_TOL of their scale, top-K equal,
+             confidences within MESH_TOL) and fast top-1 where clear; the
              STFT form on (2, 2) (B1 once per cell); Perch v2 conv on (2, 2)
              at fp32 (14795 padded to 14796, embeddings 1536 within
              MESH_TOL, no pad index); ten minutes of int16 streamed on
              (2, 2) at fp32 against the single classifier's stream, with and
-             without a per-call species mask; the batch context (eager, no
-             graph) against the mesh's predict_batch and a DynamicBatcher's
-             64 answers against the single classifier's; two CLI processes
-             joined by --coordinator on 127.0.0.1 over four WAVs against one
-             process's CSV. Prints predict_batch(32) and stream seg/s, mesh
-             and single in turns.
+             without a per-call species mask (the masked key bitwise against
+             the eager loop), the fast stream's device memory within
+             MESH_DEVICE_GROWTH and its keys unchanged over
+             MESH_STREAM_REPEATS more runs; the batch context against the
+             mesh's predict_batch and a DynamicBatcher's 64 answers against
+             the single classifier's; two CLI processes joined by
+             --coordinator on 127.0.0.1 over four WAVs against one process's
+             CSV. Prints, in turns, predict_batch(32), context and stream
+             seg/s of each mesh (graph and eager) beside the single
+             classifier's context, predict_batch and stream, and the idle
+             share (torch.profiler) of one (2, 2) context call and one
+             streamed ten minutes beside the single classifier's.
+18. activation_diff — utils/activation_diff on the full-width v2.4 conv
+             file (4 seeded rows): the worst ten nodes of fast against fp32
+             on the card, and the card against the host at fp32, every node
+             within 1e-4 of its layer's scale.
 
 Before each driven path (slice, stream, int8, families, the batch
 context's capture, each server's run, the exported files, the CRNN, the
@@ -3567,6 +3582,8 @@ MESHES = ((1, 1), (2, 2), (1, 4))
 MESH_TOL = 1e-4
 MESH_CTX_TOL = 1e-5
 MESH_STREAM_SECONDS = 600
+MESH_STREAM_REPEATS = 5
+MESH_DEVICE_GROWTH = 1 << 20
 MESH_BATCHER_REQUESTS = 64
 MESH_WAVS, MESH_WAV_SECONDS = 4, 9
 MESH_PROC_TIMEOUT_S = 120
@@ -3677,6 +3694,59 @@ def mesh_cli_check(path: str, tmp: Path) -> dict:
     return line
 
 
+def eager_batch(eng, bucket: int):
+    """The mesh's eager step of a batch bucket (the plain version its
+    captured program is held to)."""
+    from birdnet_tpu_torch.parallel.engine import _EagerBatch
+
+    return _EagerBatch(eng, bucket, eng.embed_index is not None)
+
+
+def arrays_equal(got, want) -> bool:
+    return all((g is None and w is None) or np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def mesh_eager_stream(eng, samples, **kw):
+    """``eng.analyze`` through the mesh's eager tile loop (the plain
+    version of its captured tiles)."""
+    eng._run_tiles = eng._eager_tiles
+    try:
+        return eng.analyze(samples, **kw)
+    finally:
+        del eng._run_tiles
+
+
+def calls_rate(fn, rows: int):
+    """A rate function for :func:`in_turns`: the median rows/s of ``n``
+    calls of ``fn`` (host clock; each ends with its results on the host),
+    after one warm call."""
+    def rate(n):
+        fn()
+        readings = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            readings.append(rows / (time.perf_counter() - t0))
+        return statistics.median(readings)
+    return rate
+
+
+def mesh_replays(program) -> int:
+    """Graphs one call of a mesh program replays: one per card and the
+    merge's where the cells span cards."""
+    return len(program.step.graphs) + (program.step._merge_graph is not None)
+
+
+def idle_share(fn) -> dict:
+    """torch.profiler over one call of ``fn``: wall, device busy (the union
+    of its kernel, copy and set intervals) and the idle share."""
+    wall_ms, events = _profile_events(fn)
+    busy_ms = _device_busy_ms(events)
+    if busy_ms <= 0.0:
+        raise AssertionError("mesh profile: no device interval in the trace")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms}
+
+
 def phase_mesh(card: str, paths: dict, segs: np.ndarray) -> dict:
     """The mesh phase (see the module docstring). Returns the launch counts
     of the mesh runs."""
@@ -3700,11 +3770,30 @@ def phase_mesh(card: str, paths: dict, segs: np.ndarray) -> dict:
         if not line["ok"]:
             failed.append(line["part"])
 
-    # (1) v2.4 conv predict_batch(32) on each mesh.
+    pcm = (np.random.default_rng(SEED + 103).standard_normal(MESH_STREAM_SECONDS * 48_000)
+           * 3000).clip(-32768, 32767).astype(np.int16)
+    n_stream = -(-pcm.shape[0] // S)
+
+    def stream_rate(analyze):
+        def rate(n):
+            readings = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                analyze(pcm)
+                readings.append(n_stream / (time.perf_counter() - t0))
+            return statistics.median(readings)
+        return rate
+
+    # (1) v2.4 conv on each mesh at fast: predict_batch(32), the batch
+    # context and the ten-minute stream replay the captured programs, held
+    # to the eager step bit for bit; fp32 against the single classifier.
     single = {policy: built(paths["conv"], LABELS, policy) for policy in ("fp32", "fast")}
     ref = single["fp32"].predict_batch(segs)
+    single_ctx = single["fast"].create_batch_context(N_SEG)
     # The single device's launches per call: the yardstick, not the mesh path.
     _, per_call = launches_of(lambda: single["fast"].predict_batch(segs))
+    rows_mask = np.random.default_rng(SEED + 106).random((N_SEG, birdnet_v24.NUM_SPECIES)) < 0.5
+    rows_mask[:, 0] = True
     conv_meshes = {}
     for shape in MESHES:
         fast = mesh_built(paths["conv"], LABELS, "fast", shape)
@@ -3712,36 +3801,87 @@ def phase_mesh(card: str, paths: dict, segs: np.ndarray) -> dict:
         conv_meshes[shape] = {"fast": fast, "fp32": fp32}
         eng = fast._engine
         cells = shape[0] * (shape[1] if eng.head_sharded else 1)
+        t0 = time.perf_counter()
+        ctx = fast.create_batch_context(N_SEG, precompile_row_mask=True)
+        capture_s = time.perf_counter() - t0
+        program = eng.compiled(N_SEG)
         got_fast, launches = counted(lambda: fast.predict_batch(segs))
+        eager = eager_batch(eng, N_SEG)
+        graph_out = program.run(segs, None, N_SEG, None)
+        masks = np.ones((N_SEG, birdnet_v24.NUM_SPECIES), bool)
+        masks[:N_SEG - 3] = rows_mask[:N_SEG - 3]
+        got_ctx = fast.predict_batch_with_context(ctx, segs[:N_SEG - 3],
+                                                  species_masks=rows_mask[:N_SEG - 3])
+        want_ctx = eager.run(segs[:N_SEG - 3], masks, N_SEG - 3, None)
+        eng.analyze(pcm)  # captures the key's graphs (the warm calls count)
+        stream_graph, stream_launches = counted(lambda: eng.analyze(pcm))
         line = {"phase": "mesh", "part": f"v24_conv_{shape[0]}x{shape[1]}", "card": card,
                 "cells_run": cells, "head_sharded": eng.head_sharded,
                 "species_padded": eng._cells.head.n_padded,
+                "context_graph": ctx.graph is program, "capture_s": capture_s,
+                "replays_per_call": mesh_replays(program),
+                "stream_keys": [list(k) for k in eng.programs],
+                "stream_keys_eager": [list(k) for k, p in eng.programs.items() if p.eager],
+                "graph_vs_eager_predict_batch_bitwise": arrays_equal(
+                    graph_out, eager.run(segs, None, N_SEG, None)),
+                "graph_vs_eager_context_row_masks_bitwise": bool(np.array_equal(
+                    logits_of(got_ctx), want_ctx[2])) and all(
+                    [p.index for p in r.predictions] == list(i[:len(r.predictions)])
+                    for r, i in zip(got_ctx, want_ctx[1])),
+                "graph_vs_eager_stream_bitwise": arrays_equal(
+                    stream_graph, mesh_eager_stream(eng, pcm)),
                 "fp32_vs_single": mesh_vs_single(fp32.predict_batch(segs), ref),
                 "fast_top1_vs_single_fp32": top1_where_clear(logits_of(got_fast),
                                                              logits_of(ref)),
                 "launches_one_call": {k: launches[k] for k in
                                       ("filterbank_logpower", "stage_stack_forward")},
                 "expected_launches": {k: cells * per_call[k] for k in
-                                      ("filterbank_logpower", "stage_stack_forward")}}
+                                      ("filterbank_logpower", "stage_stack_forward")},
+                "stream_launches": {k: stream_launches[k] for k in
+                                    ("filterbank_logpower", "stage_stack_forward")},
+                "stream_tiles": -(-n_stream // eng.tile)}
         line["seg_per_s_fast_predict_batch32"] = in_turns(
-            {"single": lambda n: seg_per_s(single["fast"], segs, n),
-             "mesh": lambda n: seg_per_s(fast, segs, n)})
+            {"single_context": lambda n: statistics.median(
+                context_rates(single["fast"], single_ctx, segs, n)),
+             "single_predict_batch": lambda n: seg_per_s(single["fast"], segs, n),
+             "mesh_graph": lambda n: seg_per_s(fast, segs, n),
+             "mesh_context": lambda n: statistics.median(context_rates(fast, ctx, segs, n)),
+             "mesh_graph_step": calls_rate(lambda: program.run(segs, None, N_SEG, None), N_SEG),
+             "mesh_eager_step": calls_rate(lambda: eager.run(segs, None, N_SEG, None), N_SEG)})
+        line["seg_per_s_fast_stream"] = in_turns(
+            {"single": stream_rate(single["fast"].analyze_samples),
+             "mesh_graph": stream_rate(eng.analyze),
+             "mesh_eager": stream_rate(lambda x: mesh_eager_stream(eng, x))}, calls=2)
         line["rates_note"] = "one card named by every cell: layout, not scaling"
+        expected_stream = {k: v * line["stream_tiles"]
+                           for k, v in line["expected_launches"].items()}
         line["ok"] = bool(line["fp32_vs_single"]["ok"] and line["fast_top1_vs_single_fp32"]["ok"]
                           and line["launches_one_call"] == line["expected_launches"]
+                          and line["stream_launches"] == expected_stream
+                          and line["context_graph"] and line["replays_per_call"] == 1
+                          and line["graph_vs_eager_predict_batch_bitwise"]
+                          and line["graph_vs_eager_context_row_masks_bitwise"]
+                          and line["graph_vs_eager_stream_bitwise"]
+                          and not line["stream_keys_eager"]
                           and eng.head_sharded == (shape[1] > 1)
                           and launches["filterbank_logpower"] > 0)
         check(line)
+        del ctx
 
-    # (2) The STFT form on (2, 2) at fast: B1 once per cell.
+    # (2) The STFT form on (2, 2) at fast: B1 once per cell per replay.
     stft_ref = built(paths["stft"], LABELS, "fp32").predict_batch(segs)
     stft = mesh_built(paths["stft"], LABELS, "fast", (2, 2))
+    stft._engine.warmup((N_SEG,))
     got, launches = counted(lambda: stft.predict_batch(segs))
     line = {"phase": "mesh", "part": "v24_stft_2x2", "card": card,
             "stft_melspec_launches": launches["stft_melspec"],
             "stage_stack_forward_launches": launches["stage_stack_forward"],
+            "graph_vs_eager_bitwise": arrays_equal(
+                stft._engine.compiled(N_SEG).run(segs, None, N_SEG, None),
+                eager_batch(stft._engine, N_SEG).run(segs, None, N_SEG, None)),
             "fast_top1_vs_single_fp32": top1_where_clear(logits_of(got), logits_of(stft_ref))}
     line["ok"] = bool(launches["stft_melspec"] == 4 and line["fast_top1_vs_single_fp32"]["ok"]
+                      and line["graph_vs_eager_bitwise"]
                       and launches["stage_stack_forward"] == 4 * per_call["stage_stack_forward"])
     check(line)
     del stft, stft_ref
@@ -3761,50 +3901,69 @@ def phase_mesh(card: str, paths: dict, segs: np.ndarray) -> dict:
             "head_sharded": perch._engine.head_sharded,
             "embedding_width": int(got[0].embeddings.shape[0]),
             "max_index": max(p.index for r in got for p in r.predictions),
+            "graph_vs_eager_bitwise": arrays_equal(
+                perch._engine.compiled(N_SEG).run(perch_segs, None, N_SEG, None),
+                eager_batch(perch._engine, N_SEG).run(perch_segs, None, N_SEG, None)),
             "fp32_vs_single": mesh_vs_single(got, want, emb=True)}
     line["ok"] = bool(line["fp32_vs_single"]["ok"] and line["species_padded"] == 14796
                       and line["head_sharded"] and line["embedding_width"] == 1536
-                      and line["max_index"] < perch_v2.NUM_SPECIES)
+                      and line["max_index"] < perch_v2.NUM_SPECIES
+                      and line["graph_vs_eager_bitwise"])
     check(line)
     del perch, want, got
 
     # (4) Ten minutes of int16 streamed on (2, 2) at fp32 against the single
-    # classifier's stream, with and without a per-call species mask; the
-    # fast mesh's stream counted and timed.
-    pcm = (np.random.default_rng(SEED + 103).standard_normal(MESH_STREAM_SECONDS * 48_000)
-           * 3000).clip(-32768, 32767).astype(np.int16)
+    # classifier's stream, with and without a per-call species mask (the
+    # masked key against the eager loop bit for bit); the fast stream's
+    # device memory and keys across MESH_STREAM_REPEATS more runs; the idle
+    # share of one profiled fast stream and one profiled context call.
     mask = np.random.default_rng(SEED + 104).random(birdnet_v24.NUM_SPECIES) < 0.1
     mesh22 = conv_meshes[2, 2]
+    eng22 = mesh22["fast"]._engine
     streamed_mesh, _ = counted(lambda: mesh22["fp32"].analyze_samples(pcm))
     masked_mesh, _ = counted(lambda: mesh22["fp32"].analyze_samples(pcm, species_mask=mask))
-    _, stream_launches = counted(lambda: mesh22["fast"].analyze_samples(pcm))
-
-    def stream_rate(clf):
-        def rate(n):
-            readings = []
-            for _ in range(n):
-                t0 = time.perf_counter()
-                clf.analyze_samples(pcm)
-                readings.append(MESH_STREAM_SECONDS / 3 / (time.perf_counter() - t0))
-            return statistics.median(readings)
-        return rate
-
+    fp32_eng = mesh22["fp32"]._engine
+    masked_bitwise = arrays_equal(fp32_eng.analyze(pcm, species_mask=mask),
+                                  mesh_eager_stream(fp32_eng, pcm, species_mask=mask))
+    eng22.analyze(pcm)
+    torch.cuda.synchronize()
+    keys = list(eng22.programs)
+    memory = torch.cuda.memory_allocated()
+    for _ in range(MESH_STREAM_REPEATS):
+        eng22.analyze(pcm)
+    torch.cuda.synchronize()
+    growth = torch.cuda.memory_allocated() - memory
+    ctx22 = mesh22["fast"].create_batch_context(N_SEG)
+    mesh22["fast"].predict_batch_with_context(ctx22, segs)
+    single["fast"].analyze_samples(pcm)
     line = {"phase": "mesh", "part": "stream_2x2", "card": card,
-            "segments": MESH_STREAM_SECONDS // 3,
+            "segments": n_stream,
             "fp32_vs_single": streams_agree(streamed_mesh, single["fp32"].analyze_samples(pcm)),
             "fp32_masked_vs_single": streams_agree(
                 masked_mesh, single["fp32"].analyze_samples(pcm, species_mask=mask)),
+            "fp32_masked_graph_vs_eager_bitwise": masked_bitwise,
             "masked_only_allowed": all(mask[p.index] for _, ps in masked_mesh for p in ps),
-            "fast_stream_launches": {k: stream_launches[k] for k in
-                                     ("filterbank_logpower", "stage_stack_forward")},
-            "seg_per_s_fp32_stream": in_turns({"single": stream_rate(single["fp32"]),
-                                               "mesh": stream_rate(mesh22["fp32"])}, calls=2),
-            "seg_per_s_fast_stream": in_turns({"single": stream_rate(single["fast"]),
-                                               "mesh": stream_rate(mesh22["fast"])}, calls=2),
+            "fp32_keys": [list(k) for k in fp32_eng.programs],
+            "fast_repeats": MESH_STREAM_REPEATS, "fast_device_growth_bytes": growth,
+            "fast_keys_unchanged": list(eng22.programs) == keys,
+            "profile_fast_stream": idle_share(lambda: mesh22["fast"].analyze_samples(pcm)),
+            "profile_single_fast_stream": idle_share(
+                lambda: single["fast"].analyze_samples(pcm)),
+            "profile_fast_context": idle_share(
+                lambda: mesh22["fast"].predict_batch_with_context(ctx22, segs)),
+            "profile_single_fast_context": idle_share(
+                lambda: single["fast"].predict_batch_with_context(single_ctx, segs)),
+            "seg_per_s_fp32_stream": in_turns(
+                {"single": stream_rate(single["fp32"].analyze_samples),
+                 "mesh_graph": stream_rate(mesh22["fp32"].analyze_samples),
+                 "mesh_eager": stream_rate(lambda x: mesh_eager_stream(fp32_eng, x))},
+                calls=2),
             "rates_note": "one card named by every cell: layout, not scaling"}
     line["ok"] = bool(line["fp32_vs_single"]["ok"] and line["fp32_masked_vs_single"]["ok"]
-                      and line["masked_only_allowed"]
-                      and stream_launches["stage_stack_forward"] > 0)
+                      and line["masked_only_allowed"] and masked_bitwise
+                      and not any(p.eager for p in fp32_eng.programs.values())
+                      and sorted(k[4] for k in fp32_eng.programs) == [False, True]
+                      and growth <= MESH_DEVICE_GROWTH and line["fast_keys_unchanged"])
     check(line)
 
     # (5) The batch context and the batcher on (2, 2).
@@ -3836,12 +3995,14 @@ def phase_mesh(card: str, paths: dict, segs: np.ndarray) -> dict:
             "batcher_topk_equal_single": all(
                 [p.index for p in g.predictions] == [p.index for p in w.predictions]
                 for g, w in zip(got_reqs, want_reqs))}
-    line["ok"] = bool(not line["context_graph"] and line["context_topk_equal"]
+    line["ok"] = bool(line["context_graph"] and line["context_topk_equal"]
                       and line["context_scaled_logit_diff"] <= MESH_CTX_TOL
+                      and line["context_launches"] == {"filterbank_logpower": 4,
+                                                       "stage_stack_forward": 4}
                       and line["batcher_topk_equal_single"]
                       and line["batcher_requests"] == MESH_BATCHER_REQUESTS)
     check(line)
-    del conv_meshes, mesh22, single, ctx
+    del conv_meshes, mesh22, single, ctx, ctx22, single_ctx
 
     # (6) Two CLI processes joined by --coordinator on the card.
     with tempfile.TemporaryDirectory() as tmp:
@@ -3853,6 +4014,49 @@ def phase_mesh(card: str, paths: dict, segs: np.ndarray) -> dict:
     if failed:
         raise AssertionError(f"mesh: {failed} failed")
     return total
+
+
+# The activation_diff phase: utils/activation_diff on the full-width v2.4
+# conv file, ACT_DIFF_ROWS seeded rows: fast against fp32 on the card (the
+# worst ACT_DIFF_WORST nodes printed), and the card against the host at
+# fp32, every node within ACT_DIFF_TOL of its layer's scale.
+ACT_DIFF_ROWS, ACT_DIFF_WORST, ACT_DIFF_TOL = 4, 10, 1e-4
+
+
+def phase_activation_diff(card: str, path: str) -> None:
+    from birdnet_tpu_torch.checkpoint import import_any
+    from birdnet_tpu_torch.utils.activation_diff import (
+        capture_activations,
+        layer_diffs,
+        top_k_agreement,
+    )
+
+    t0 = time.perf_counter()
+    imported = import_any(path)
+    node_of = {o: n.op_type for n in imported.graph.node for o in n.output}
+    x = (np.random.default_rng(SEED + 107).normal(size=(ACT_DIFF_ROWS, S)) * 0.2
+         ).astype(np.float32)
+    fp32 = capture_activations(imported, "fp32", x)
+    fast = capture_activations(imported, "fast", x)
+    host = capture_activations(imported, "fp32", x, "cpu")
+    fast_rows = layer_diffs(fp32, fast, node_of)
+    host_rows = layer_diffs(host, fp32, node_of)
+    logits = imported.output_names[-1]
+    line = {"phase": "activation_diff", "card": card, "nodes": len(fp32),
+            "same_names": set(fp32) == set(fast) == set(host),
+            "all_finite": all(np.isfinite(v).all() for v in fp32.values()),
+            "fast_vs_fp32_worst": [(rel, absd, name, op)
+                                   for rel, absd, name, op in fast_rows[:ACT_DIFF_WORST]],
+            "fast_vs_fp32_top1_top5": top_k_agreement(fp32[logits], fast[logits]),
+            "card_vs_host_fp32_worst": [(rel, absd, name, op)
+                                        for rel, absd, name, op in host_rows[:ACT_DIFF_WORST]],
+            "card_vs_host_fp32_compared": len(host_rows),
+            "seconds": time.perf_counter() - t0}
+    line["ok"] = bool(line["same_names"] and line["all_finite"]
+                      and len(host_rows) == len(fp32) and host_rows[0][0] <= ACT_DIFF_TOL)
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"activation_diff: {line}")
 
 
 def main_ab() -> int:
@@ -3910,6 +4114,7 @@ def main() -> int:
         path_launches.append(phase_op_sets(smi))
         path_launches.append(phase_contrib(smi, paths))
         path_launches.append(phase_mesh(smi, paths, segs))
+        phase_activation_diff(smi, paths["conv"])
     # Each kernel's launches summed over its paths; B5's from its kernel
     # phase.
     launches = {k: sum(run[k] for run in path_launches) for k in path_launches[0]}

@@ -11,11 +11,15 @@ single-device classifier on ``cuda:0``:
 - fp32: the mesh's logits, top-K and confidences against the single
   card's (logits within 1e-4 of their scale, indices equal, confidences
   within 1e-4);
-- ``fast``: the kernel launches of one ``predict_batch(32)`` per kernel
-  (B2 and B4 once per running cell);
-- ``fast`` ``predict_batch`` segments/s at batch 32 and 128, and a
-  ten-minute int16 stream's segments/s, mesh and single card in turns
-  (host clock, median of each reading's calls).
+- ``fast``: the mesh's captured programs (``predict_batch(32)``, the batch
+  context with row masks, the ten-minute stream) against its eager step
+  bit for bit; the graphs one call replays (one per card and the merge);
+  the kernel launches of one ``predict_batch(32)`` per kernel (B2 and B4
+  once per running cell);
+- ``fast`` ``predict_batch`` segments/s at batch 32 and 128 (the mesh's
+  graphs, its eager step, the single card's ``predict_batch`` and batch
+  context), and a ten-minute int16 stream's segments/s (graphs, eager,
+  single card), in turns (host clock, median of each reading's calls).
 
 Then two CLI processes joined by ``--coordinator`` on 127.0.0.1, each
 seeing one card (``CUDA_VISIBLE_DEVICES``), over four seeded WAVs against
@@ -48,6 +52,7 @@ from birdnet_tpu_torch.onnx import proto as P  # noqa: E402
 from birdnet_tpu_torch.ops.cuda import frontend as fe  # noqa: E402
 from birdnet_tpu_torch.ops.cuda import stage_prefix as spx  # noqa: E402
 from birdnet_tpu_torch.parallel import make_mesh  # noqa: E402
+from birdnet_tpu_torch.parallel.engine import _EagerBatch  # noqa: E402
 from birdnet_tpu_torch.utils.audio_io import write_wav  # noqa: E402
 
 SEED = 0
@@ -83,6 +88,38 @@ def in_turns(fns: dict, n_segments: int) -> dict:
         for name in order:
             got[name].append(rate(fns[name], n_segments))
     return {name: statistics.median(v) for name, v in got.items()}
+
+
+def graph_vs_eager(clf, segs, pcm) -> dict:
+    """The mesh's captured programs against its eager step on the same
+    inputs, bit for bit: predict_batch's program, the row-mask program
+    (as a batch context runs it) and the stream."""
+    eng = clf._engine
+    b = segs.shape[0]
+    eager = _EagerBatch(eng, eng._batch_bucket(b), eng.embed_index is not None)
+    rows = np.random.default_rng(SEED + 3).random((eager.bucket, birdnet_v24.NUM_SPECIES)) < 0.5
+    same = {}
+    for name, mask in (("predict_batch", None), ("row_masks", rows)):
+        program = eng.compiled(b, with_row_mask=mask is not None)
+        got, want = program.run(segs, mask, b, None), eager.run(segs, mask, b, None)
+        same[name] = all((g is None and w is None) or np.array_equal(g, w)
+                         for g, w in zip(got, want))
+    graph = eng.analyze(pcm)
+    plain = eager_stream(eng, pcm)
+    same["stream"] = all(np.array_equal(g, w) for g, w in zip(graph, plain))
+    program = eng.compiled(b)
+    same["replays_per_call"] = len(program.step.graphs) + (program.step._merge_graph is not None)
+    same["stream_keys_eager"] = [list(k) for k, p in eng.programs.items() if p.eager]
+    return same
+
+
+def eager_stream(eng, pcm):
+    """``eng.analyze(pcm)`` through the mesh's eager tile loop."""
+    eng._run_tiles = eng._eager_tiles
+    try:
+        return eng.analyze(pcm)
+    finally:
+        del eng._run_tiles
 
 
 def agreement(got, want) -> dict:
@@ -162,6 +199,7 @@ def main() -> int:
         path = str(Path(tmp) / "v24_conv.onnx")
         P.save_model(birdnet_v24.build_model(seed=SEED, frontend="conv"), path)
         single = {policy: built(path, policy) for policy in ("fp32", "fast")}
+        contexts = {}
         want = single["fp32"].predict_batch(segs[:32])
         for shape in dict.fromkeys(shapes):
             mesh = make_mesh(cards, shape=shape)
@@ -176,14 +214,25 @@ def main() -> int:
                     "launches_one_call": {"filterbank_logpower": fe.LAUNCHES["filterbank_logpower"],
                                           "stage_stack_forward":
                                               spx.LAUNCHES["stage_stack_forward"]}}
+            line["graph_vs_eager"] = checks = graph_vs_eager(fast, segs[:32], pcm)
+            eng = fast._engine
             for b in (32, 128):
+                ctx = contexts.setdefault(b, single["fast"].create_batch_context(b))
+                eager = _EagerBatch(eng, b, False)
                 line[f"seg_per_s_fast_predict_batch{b}"] = in_turns(
                     {"one_card": lambda b=b: single["fast"].predict_batch(segs[:b]),
-                     "mesh": lambda b=b: fast.predict_batch(segs[:b])}, b)
+                     "one_card_context": lambda b=b, ctx=ctx: single[
+                         "fast"].predict_batch_with_context(ctx, segs[:b]),
+                     "mesh": lambda b=b: fast.predict_batch(segs[:b]),
+                     "mesh_eager": lambda b=b, e=eager: e.run(segs[:b], None, b, None)}, b)
             line["seg_per_s_fast_stream_10min"] = in_turns(
                 {"one_card": lambda: single["fast"].analyze_samples(pcm),
-                 "mesh": lambda: fast.analyze_samples(pcm)}, STREAM_SECONDS // 3)
-            line["ok"] = line["fp32_vs_one_card"]["ok"]
+                 "mesh": lambda: fast.analyze_samples(pcm),
+                 "mesh_eager": lambda: eager_stream(eng, pcm)}, STREAM_SECONDS // 3)
+            line["ok"] = bool(line["fp32_vs_one_card"]["ok"] and checks["predict_batch"]
+                              and checks["row_masks"] and checks["stream"]
+                              and not checks["stream_keys_eager"]
+                              and checks["replays_per_call"] == (1 if n == 1 else n + 1))
             emit(line)
             if not line["ok"]:
                 failed.append(shape)

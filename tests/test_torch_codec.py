@@ -260,6 +260,25 @@ def test_device_config_copy_differs_only_in_cuda_meanings():
         "birdnet_tpu_torch/device_config.py drifted outside its docstrings and TPUConfig.apply"
 
 
+# utils/activation_diff.py is a copy whose capture_activations runs the
+# port's interpreter eagerly on an explicit device (the JAX package's jits
+# its own); layer_diffs and top_k_agreement are numpy and stay as they are.
+def _without_capture(src: bytes) -> bytes:
+    start = src.index(b"def capture_activations(")
+    end = src.index(b"def layer_diffs(")
+    assert start < end
+    return src[:start] + src[end:]
+
+
+def test_activation_diff_copy_differs_only_in_capture():
+    src = (REPO / "birdnet_tpu/utils/activation_diff.py").read_bytes()
+    dst = (REPO / "birdnet_tpu_torch/utils/activation_diff.py").read_bytes()
+    assert b"interpret_graph(graph, imported.opset, precision, env" in dst
+    assert b"import jax" not in dst
+    assert _without_capture(dst) == _without_capture(src), \
+        "birdnet_tpu_torch/utils/activation_diff.py drifted outside capture_activations"
+
+
 def test_port_main_is_guarded():
     """The JAX package's __main__ calls main() on import; the port's runs it
     only as a script, so importing every module (the walk below) never

@@ -1198,6 +1198,7 @@ def test_mesh_on_one_card_runs_the_kernels_per_cell(dev, tmp_path, shape):
     single.predict_batch(x)
     per_call = (fe.LAUNCHES["filterbank_logpower"], sp.LAUNCHES["stage_stack_forward"])
     meshed = build("fast", mesh)
+    meshed.predict_batch(x)  # captures the bucket's graphs (warm calls count)
     fe.reset_launches()
     sp.reset_launches()
     meshed.predict_batch(x)
@@ -1209,3 +1210,173 @@ def test_mesh_on_one_card_runs_the_kernels_per_cell(dev, tmp_path, shape):
         assert [p.index for p in got.predictions] == [p.index for p in want.predictions]
         scale = np.abs(want.raw_scores).max()
         assert np.abs(got.raw_scores - want.raw_scores).max() <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# The mesh's compiled programs: per key one CUDA graph per card and the
+# merge (parallel/graphs.py), held bit for bit to the eager step.
+# ---------------------------------------------------------------------------
+
+
+def _mesh_classifier(dev, tmp_path, shape=(2, 2), policy="fast", num_species=10):
+    from birdnet_tpu_torch import Classifier
+    from birdnet_tpu_torch.models import birdnet_v24
+    from birdnet_tpu_torch.parallel import make_mesh
+
+    path = tmp_path / "v24.onnx"
+    birdnet_v24.save_tiny(path, num_species=num_species)
+    mesh = make_mesh([dev] * (shape[0] * shape[1]), shape=shape)
+    return (Classifier.builder().model_path(path).labels([f"s{i}" for i in range(num_species)])
+            .precision(policy).top_k(3).with_mesh(mesh).build())
+
+
+def _mesh_eager_stream(eng, samples, **kw):
+    """``eng.analyze`` through the eager tile loop (the plain version)."""
+    eng._run_tiles = eng._eager_tiles
+    try:
+        return eng.analyze(samples, **kw)
+    finally:
+        del eng._run_tiles
+
+
+def test_mesh_graphs_match_the_eager_step_bitwise(dev, tmp_path):
+    """A one-card (2, 2) mesh at fast: predict_batch (one replay per call),
+    its batch context with and without row masks and its stream with and
+    without the call mask equal the eager step bit for bit; each replay
+    counts B2 and B4 once per running cell."""
+    from birdnet_tpu_torch.parallel.engine import _EagerBatch
+
+    clf = _mesh_classifier(dev, tmp_path)
+    eng = clf._engine
+    x = _segments(8, "cpu", torch.float32).numpy()
+    rows = np.random.default_rng(3).random((8, 10)) < 0.5
+    rows[:, 0] = True
+    for masked in (False, True):
+        program = eng.compiled(8, with_row_mask=masked)
+        assert not program.eager and len(program.step.graphs) == 1
+        mask = rows if masked else None
+        got = program.run(x, mask, 8, None)
+        want = _EagerBatch(eng, 8, False).run(x, mask, 8, None)
+        for a, b in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(a, b)
+    fe.reset_launches()
+    sp.reset_launches()
+    clf.predict_batch(x)
+    assert (fe.LAUNCHES["filterbank_logpower"], sp.LAUNCHES["stage_stack_forward"]) == (4, 4)
+
+    ctx = clf.create_batch_context(8, precompile_row_mask=True)
+    assert ctx.graph is eng.compiled(8)
+    for masks in (None, rows[:5]):
+        got = clf.predict_batch_with_context(ctx, x[:5], species_masks=masks)
+        want = _EagerBatch(eng, 8, False).run(x[:5], None if masks is None else np.vstack(
+            [masks, np.ones((3, 10), bool)]), 5, None)
+        np.testing.assert_array_equal(np.stack([r.raw_scores for r in got]), want[2])
+
+    pcm = _recording(120, 48_000, "int16")
+    call = np.zeros(10, bool)
+    call[[0, 2, 5, 9]] = True
+    for kw in ({}, {"species_mask": call}, {"overlap_seconds": 1.5}):
+        graph = eng.analyze(pcm, **kw)
+        for a, b in zip(graph, _mesh_eager_stream(eng, pcm, **kw)):
+            np.testing.assert_array_equal(a, b)
+    assert sorted(k[4] for k in eng.programs) == [False, False, True]
+    assert not any(p.eager for p in eng.programs.values())
+    fe.reset_launches()
+    conf, _, _ = eng.analyze(pcm)
+    assert fe.LAUNCHES["filterbank_logpower"] == 4 * -(-len(conf) // eng.tile)
+
+
+def test_mesh_graphs_match_the_eager_step_on_other_layouts(dev, tmp_path):
+    """(1, 4) and (2, 1) one-card meshes: the graphs equal the eager step
+    (head split four ways with 10 species padded to 12; no split)."""
+    from birdnet_tpu_torch.parallel.engine import _EagerBatch
+
+    x = _segments(4, "cpu", torch.float32).numpy()
+    for shape in ((1, 4), (2, 1)):
+        eng = _mesh_classifier(dev, tmp_path, shape, policy="fp32")._engine
+        got = eng.compiled(4).run(x, None, 4, None)
+        want = _EagerBatch(eng, 4, False).run(x, None, 4, None)
+        for a, b in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_failed_mesh_capture_raises(dev, tmp_path, monkeypatch):
+    """A cell that synchronizes while captured: the program, the context
+    and the stream raise InferenceError; a while-form forward (host reads)
+    predicts through an eager key, and its context refuses."""
+    from _torch_flow_cases import while_classifier_bytes
+
+    from birdnet_tpu_torch import Classifier
+    from birdnet_tpu_torch.errors import InferenceError
+    from birdnet_tpu_torch.parallel import make_mesh
+
+    clf = _mesh_classifier(dev, tmp_path)
+    cells = clf._engine._cells
+    cell = cells.cell
+
+    def syncing(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return cell(*args, **kw)
+
+    monkeypatch.setattr(cells, "cell", syncing)
+    with pytest.raises(InferenceError, match="capture"):
+        clf._engine.compiled(8)
+    with pytest.raises(InferenceError, match="capture"):
+        clf.create_batch_context(8)
+    with pytest.raises(InferenceError, match="capture"):
+        clf.analyze_samples(_recording(30, 48_000, "int16"))
+
+    path = tmp_path / "while_v24.onnx"
+    path.write_bytes(while_classifier_bytes(10))
+    mesh = make_mesh([dev] * 4, shape=(2, 2))
+    loop = (Classifier.builder().model_path(str(path)).labels([f"s{i}" for i in range(10)])
+            .precision("fp32").with_mesh(mesh).build())
+    segs = (np.random.default_rng(0).normal(size=(3, 144_000)) * 0.1).astype(np.float32)
+    assert np.isfinite(np.stack([r.raw_scores for r in loop.predict_batch(segs)])).all()
+    assert loop._engine.compiled(4).eager
+    with pytest.raises(InferenceError, match="capture"):
+        loop.create_batch_context(4)
+
+
+def test_capture_activations_card_against_host(dev, tmp_path):
+    """utils/activation_diff on the card against the host at fp32: the
+    same value names, every layer within 1e-4 of its own scale."""
+    from birdnet_tpu_torch.checkpoint import import_any
+    from birdnet_tpu_torch.models import birdnet_v24
+    from birdnet_tpu_torch.utils.activation_diff import capture_activations, layer_diffs
+
+    path = tmp_path / "v24.onnx"
+    birdnet_v24.save_tiny(path, num_species=10)
+    imported = import_any(str(path))
+    x = _segments(2, "cpu", torch.float32).numpy()
+    card = capture_activations(imported, "fp32", x)
+    host = capture_activations(imported, "fp32", x, "cpu")
+    assert set(card) == set(host)
+    worst = layer_diffs(host, card)[0]
+    assert worst[0] <= 1e-4, worst
+
+
+def test_stream_graph_outlives_the_operand_caches(dev, tmp_path):
+    """A stream key's graph reads B4's weight tables and B2's packed
+    filterbank from the lowerings' caches. Nine more forwards fill both
+    caches past their size, and what they drop is freed and released: the
+    graph's next replay gives the same answer bit for bit (before a graph
+    held what it read, an illegal memory access)."""
+    import gc
+
+    from birdnet_tpu_torch.compiler import ops as tops
+
+    clf = _small_classifier(tmp_path, "v24", "conv")
+    eng = clf._streaming_engine()
+    pcm = _recording(60, 48_000, "int16")
+    first = eng.analyze(pcm)
+    x = _segments(2, "cpu", torch.float32).numpy()
+    for i in range(tops._PREFIX_TABLES_MAX + 1):
+        _small_classifier(tmp_path, "v24", "conv").predict_batch(x)
+    gc.collect()
+    torch.cuda.empty_cache()
+    again = eng.analyze(pcm)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)

@@ -163,6 +163,41 @@ def test_streaming_iter_on_mesh(single, sharded):
     _same_stream(out, single.analyze_samples(audio))
 
 
+def test_mesh_stream_keys_separate_the_call_mask(sharded):
+    """A per-call mask makes a streaming key of its own (the JAX engine's
+    ``with_mask``; ``streaming_analyze`` asks for it whenever a call passes
+    a mask); on host cells every key runs the eager tile loop."""
+    eng = sharded._engine
+    plain = eng._program(144_000, np.int16, False, False)
+    masked = eng._program(144_000, np.int16, False, True)
+    assert plain is not masked and eng._program(144_000, np.int16) is plain
+    keys = {k for k in eng.programs if k[:3] == (eng.tile, 144_000, "int16")}
+    assert {k[4] for k in keys} == {False, True} and len(keys) == 2
+    assert all(p.eager and not p.steps for p in eng.programs.values())
+
+
+def test_mesh_program_caches_are_bounded(sharded):
+    """At most MAX_PROGRAMS streaming keys and batch keys, the least
+    recently used dropped; a batch key rounds its bucket up to the data
+    axis and leaves out ``donate`` and v2.4's missing embeddings; host
+    cells get the eager step (no graph)."""
+    from birdnet_tpu_torch.compiler.stream import MAX_PROGRAMS
+
+    eng = sharded._engine
+    steps = list(range(1000, 1000 + MAX_PROGRAMS + 3))
+    for step in steps:
+        eng._program(step, np.float32)
+    eng._program(steps[-MAX_PROGRAMS], np.float32)  # used again: now the newest
+    assert [k[1] for k in eng.programs] == steps[-MAX_PROGRAMS + 1:] + [steps[-MAX_PROGRAMS]]
+    program = eng.compiled(5)
+    assert program is eng.compiled(8, with_embeddings=False, donate=True)
+    assert program.eager and program.bucket == 8
+    for b in range(1, MAX_PROGRAMS + 3):
+        eng.compiled(4 * b, with_row_mask=True)
+    assert len(eng._compiled) == MAX_PROGRAMS
+    assert sharded.create_batch_context(4).graph is None
+
+
 def test_cancelled_mesh_call_raises(sharded):
     token = tbt.CancellationToken()
     token.cancel()

@@ -454,3 +454,53 @@ def test_host_reads_are_counted_per_thread(tmp_path):
     mine, theirs = _build(tbt, str(path)), _build(jbt, str(path))
     samples = _audio(10.0)
     _same(mine.analyze_samples(samples), _jax(theirs.analyze_samples, samples))
+
+
+@pytest.mark.parametrize("cache", ["frontend_operands", "host_upload", "noise"])
+def test_a_capture_holds_the_cached_operands_it_reads(cache):
+    """The operand caches of the lowerings and kernel wrappers drop entries
+    past their size; a CUDA graph reads its operands at their addresses on
+    every replay, so whatever a cache hands out inside ``build.holding()``
+    (a graph's capture) stays alive in the held list after the cache drops
+    it (the fault: a stream key's graph read B4's freed weight tables once
+    nine forwards had filled their cache)."""
+    import gc
+    import weakref
+
+    from birdnet_tpu_torch.compiler import ops as tops
+    from birdnet_tpu_torch.compiler import ops_extended as text
+    from birdnet_tpu_torch.ops.cuda import build
+    from birdnet_tpu_torch.ops.cuda import frontend as tfe
+
+    cpu = torch.device("cpu")
+    if cache == "frontend_operands":
+        def take(i):
+            return tfe._cached(lambda key: key == ("held", i),
+                               lambda: (("held", i), torch.full((4,), float(i))))
+        room = tfe._OPERANDS_KEPT
+    elif cache == "host_upload":
+        def take(i):
+            if i:  # past 4,096 values the cache drops the oldest; drop it all
+                tops._device_array.cache_clear()
+            return tops._on_device(np.full((3,), i, np.float32), cpu)
+        room = 0
+    else:
+        ctx = tops.OpContext(op_type="RandomNormal", attrs={"seed": None}, opset=17,
+                             precision="fp32", node_name="n", num_outputs=1, env={},
+                             out_names=["y"], device=cpu)
+
+        def take(i):
+            return text._noise(ctx, "normal", (i + 1,), torch.float32, cpu)
+        room = text._NOISE_MAX
+    with build.holding() as held:
+        first = take(0)
+    assert len(held) == 1 and held[0] is first
+    ref = weakref.ref(first)
+    del first
+    for i in range(1, room + 2):
+        take(i)
+    gc.collect()
+    assert ref() is not None
+    del held
+    gc.collect()
+    assert ref() is None
