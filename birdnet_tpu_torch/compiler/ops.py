@@ -1819,6 +1819,11 @@ def _reduce_axes(ctx, x, axes):
         if int(ctx.attr("noop_with_empty_axes", 0)):
             return None
         return tuple(range(x.ndim))
+    bad = [a for a in ax if not -x.ndim <= a < x.ndim]
+    if bad:
+        # As jnp's reductions do: adding the rank once would turn -r-1 ..
+        # -2r into another axis.
+        raise ValueError(f"axis {bad[0]} is out of bounds for array of dimension {x.ndim}")
     return tuple(a + x.ndim if a < 0 else a for a in ax)
 
 

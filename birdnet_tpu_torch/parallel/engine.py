@@ -27,7 +27,6 @@ eagerly, call by call. Differences that follow:
 
 - ``donate`` is accepted and ignored (the key leaves it out), and the key
   counts embeddings only where the family has them.
-- Batches pad to a multiple of the data axis, not to a power of two.
 - ``analyze`` is compiler/stream.streaming_analyze's superchunk loop; the
   host loops over a superchunk's tiles and replays the key's graphs per
   tile, the next tile's upload overlapping the current replay.
@@ -131,7 +130,10 @@ class ShardedEngine:
     # -- batched path (InferenceEngine-compatible) -------------------------
 
     def _batch_bucket(self, b: int) -> int:
-        return max(self.dp, -(-b // self.dp) * self.dp)
+        """The JAX engine's bucket: ``b`` up to a power of two, then up to a
+        multiple of the data axis (sizes 1-32 make at most six keys)."""
+        p2 = 1 << (b - 1).bit_length() if b > 1 else 1
+        return max(self.dp, -(-p2 // self.dp) * self.dp)
 
     def compiled(
         self,

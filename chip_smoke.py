@@ -231,6 +231,20 @@ exits non-zero:
              file (4 seeded rows): the worst ten nodes of fast against fp32
              on the card, and the card against the host at fp32, every node
              within 1e-4 of its layer's scale.
+19. hunt    — scripts/torch_graph_hunt.py on the card: for each of its
+             thirteen kinds of random torch-exported architectures
+             (tests/_torch_grammars.py), the first two samples from seed
+             10000 that the grammar draws valid and the exporter writes, at
+             fp32 (TF32 off) against the torch module in eval mode and
+             against the port on the host (atol 5e-4, rtol 1e-3).
+20. stage_profile — scripts/torch_stage_profile.py's two tables on the
+             full-width v2.4 conv file at fast, tile 128: per milestone
+             (frontend, stem, each MBConv block, head, logits; then with
+             the default fusions: the frontend kernel, the stage prefix B4,
+             each later block, head, logits) the pruned prefix captured 16
+             times in one CUDA graph, replays timed with CUDA events; one
+             line per table (us per tile and per segment, share of the
+             total); the logits prefix against the model's forward.
 
 Before each driven path (slice, stream, int8, families, the batch
 context's capture, each server's run, the exported files, the CRNN, the
@@ -4059,6 +4073,76 @@ def phase_activation_diff(card: str, path: str) -> None:
         raise AssertionError(f"activation_diff: {line}")
 
 
+# The hunt phase: scripts/torch_graph_hunt.py's thirteen kinds, the first
+# HUNT_SEEDS valid samples of each from its seed base (a sample the grammar
+# draws shape-invalid, or that the exporter refuses, is skipped before the
+# port runs it, and counted); HUNT_MAX_DRAWS bounds the draws per kind.
+HUNT_SEEDS, HUNT_MAX_DRAWS = 2, 10
+
+
+def phase_hunt(card: str) -> None:
+    sys.path.insert(0, str(REPO / "tests"))
+    sys.path.insert(0, str(REPO / "scripts"))
+    import torch_graph_hunt as hunt
+
+    t0 = time.perf_counter()
+    tally, ran = {}, {}
+    for kind in hunt.KINDS:
+        ran[kind] = []
+        for seed in range(hunt.SEED_BASE, hunt.SEED_BASE + HUNT_MAX_DRAWS):
+            res = hunt.run_one(kind, seed, device=CARD)
+            tally[res] = tally.get(res, 0) + 1
+            if res in hunt.FAILURES:
+                raise AssertionError(f"hunt: kind {kind} seed {seed}: {res}")
+            if res == "ok":
+                ran[kind].append(seed)
+                if len(ran[kind]) == HUNT_SEEDS:
+                    break
+        if len(ran[kind]) < HUNT_SEEDS:
+            raise AssertionError(f"hunt: {kind} drew {ran[kind]} valid samples "
+                                 f"in {HUNT_MAX_DRAWS} seeds")
+    emit({"phase": "hunt", "card": card, "kinds": len(ran), "seeds": ran, "tally": tally,
+          "atol": hunt.ATOL, "rtol": hunt.RTOL, "seconds": time.perf_counter() - t0})
+
+
+# The stage_profile phase: scripts/torch_stage_profile.py's two tables on
+# the full-width v2.4 conv file at fast, tile 128 (STAGE_REPS forwards per
+# captured graph, median of STAGE_RUNS replays); the logits prefix (every
+# node is the logits' ancestor, so the pruning keeps the whole graph) against
+# the imported model's forward on the same tile, within FLOAT_NODE_TOL["fast"]
+# of the logits' scale.
+STAGE_TILE, STAGE_REPS, STAGE_RUNS = 128, 16, 3
+
+
+def phase_stage_profile(card: str) -> None:
+    sys.path.insert(0, str(REPO / "scripts"))
+    import torch_stage_profile as sprof
+
+    t0 = time.perf_counter()
+    S, unfused, fused = sprof.imported_models("v24", device=CARD)
+    x = torch.from_numpy((np.random.default_rng(SEED + 109).normal(size=(STAGE_TILE, S)) * 0.1)
+                         .astype(np.float32)).to(CARD)
+    results = sprof.profile_tables(unfused, fused, x, "fast", STAGE_REPS, STAGE_RUNS)
+    if [r["table"] for r in results] != ["unfused", "default_fusions"]:
+        raise AssertionError(f"stage_profile: tables {[r['table'] for r in results]}")
+    for result, imported in zip(results, (unfused, fused)):
+        params = params_to_torch(imported.params, CARD)
+        logits = imported.output_names[0]
+        got = sprof.prefix_forward(imported, logits, "fast", params, CARD)(x).float()
+        want = make_forward(imported, "fast", CARD)(params, x)[0].float()
+        scaled = float((got - want).abs().max() / want.abs().max())
+        cumulative = np.cumsum([r["us_per_tile"] for r in result["stages"]])
+        line = {"phase": "stage_profile", "card": card, "model": "v24", "frontend": "conv",
+                "precision": "fast", "tile": STAGE_TILE, "reps": STAGE_REPS,
+                "runs": STAGE_RUNS, **result, "logits_prefix_scaled_diff": scaled}
+        line["ok"] = bool(np.isfinite(cumulative).all() and (cumulative > 0).all()
+                          and scaled <= FLOAT_NODE_TOL["fast"])
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"stage_profile: {line}")
+    emit({"phase": "stage_profile_seconds", "card": card, "seconds": time.perf_counter() - t0})
+
+
 def main_ab() -> int:
     """``--ab``: B4 at the full-width geometry, B5 at int16 step 144000
     (and 72000), the B3 forward sum and predict_batch(32) under mixed, only
@@ -4115,6 +4199,8 @@ def main() -> int:
         path_launches.append(phase_contrib(smi, paths))
         path_launches.append(phase_mesh(smi, paths, segs))
         phase_activation_diff(smi, paths["conv"])
+    phase_hunt(smi)
+    phase_stage_profile(smi)
     # Each kernel's launches summed over its paths; B5's from its kernel
     # phase.
     launches = {k: sum(run[k] for run in path_launches) for k in path_launches[0]}

@@ -1286,6 +1286,28 @@ def test_mesh_graphs_match_the_eager_step_bitwise(dev, tmp_path):
     assert fe.LAUNCHES["filterbank_logpower"] == 4 * -(-len(conf) // eng.tile)
 
 
+def test_mesh_batch_sizes_1_to_32_make_at_most_six_captures(dev, tmp_path, monkeypatch):
+    """A (1, 1) card mesh: predict_batch at every size 1-32 captures one
+    program per power-of-two bucket (six), none evicted, as the JAX engine
+    compiles one executable per bucket."""
+    from birdnet_tpu_torch.parallel import engine as engine_mod
+
+    made = []
+
+    class Counted(engine_mod._MeshBatch):
+        def __init__(self, *args, **kwargs):
+            made.append(args[1])
+            super().__init__(*args, **kwargs)
+
+    monkeypatch.setattr(engine_mod, "_MeshBatch", Counted)
+    clf = _mesh_classifier(dev, tmp_path, (1, 1))
+    x = _segments(32, "cpu", torch.float32).numpy()
+    for b in range(1, 33):
+        assert len(clf.predict_batch(x[:b])) == b
+    assert made == [1, 2, 4, 8, 16, 32]
+    assert sorted(k[0] for k in clf._engine._compiled) == made
+
+
 def test_mesh_graphs_match_the_eager_step_on_other_layouts(dev, tmp_path):
     """(1, 4) and (2, 1) one-card meshes: the graphs equal the eager step
     (head split four ways with 10 species padded to 12; no split)."""

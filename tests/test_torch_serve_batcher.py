@@ -125,9 +125,41 @@ def test_concurrent_requests_coalesce(v24):
     _assert_results_agree(results["torch"], v24["torch"].predict_batch(segs), tol=1e-5)
 
 
+class _Timed:
+    """A classifier that records how long each of its batch calls (the
+    forward the batcher runs) takes."""
+
+    def __init__(self, clf):
+        self._clf = clf
+        self.seconds = []
+
+    def __getattr__(self, name):
+        return getattr(self._clf, name)
+
+    def _timed(self, fn, *args, **kwargs):
+        t0 = time.monotonic()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            self.seconds.append(time.monotonic() - t0)
+
+    def predict_batch_with_context(self, *args, **kwargs):
+        return self._timed(self._clf.predict_batch_with_context, *args, **kwargs)
+
+    def predict_batch(self, *args, **kwargs):
+        return self._timed(self._clf.predict_batch, *args, **kwargs)
+
+
+# A request's time in a zero-window batcher past its own forward: the queue
+# and a thread's wake-up, well under the 600 ms window.
+QUEUE_MARGIN_S = 0.3
+
+
 def test_max_wait_holds_a_lone_request_for_company(v24):
     """A lone request waits out the window (measured from its submit) and
-    then runs in a batch of one; with max_wait_ms=0 it runs at once."""
+    then runs in a batch of one; with max_wait_ms=0 it runs at once: its
+    time in the batcher past the forward it ran is under QUEUE_MARGIN_S,
+    whatever that forward took on a loaded host."""
     seg = segment(v24["torch"].config.sample_count, 3)
     for name, (Batcher, _) in PACKAGES.items():
         with Batcher(v24[name], max_batch=8, max_wait_ms=600) as b:
@@ -139,11 +171,14 @@ def test_max_wait_holds_a_lone_request_for_company(v24):
             snap = b.metrics.snapshot()
         assert waited >= 0.6, (name, waited)
         assert snap["batches_total"] == 1 and snap["mean_batch_fill"] == 1.0, name
-        with Batcher(v24[name], max_batch=8, max_wait_ms=0) as b:
+        timed = _Timed(v24[name])
+        with Batcher(timed, max_batch=8, max_wait_ms=0) as b:
             b.predict(seg, timeout=60)
             t0 = time.monotonic()
             b.predict(seg, timeout=60)
-            assert time.monotonic() - t0 < 0.6, name
+            took = time.monotonic() - t0
+        forward = timed.seconds[-1]
+        assert len(timed.seconds) == 2 and took - forward < QUEUE_MARGIN_S, (name, took, forward)
 
 
 def test_submit_validates_in_caller_thread(v24):

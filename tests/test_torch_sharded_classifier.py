@@ -198,6 +198,42 @@ def test_mesh_program_caches_are_bounded(sharded):
     assert sharded.create_batch_context(4).graph is None
 
 
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (1, 4)], ids=["1x1", "2x2", "1x4"])
+def test_batch_buckets_match_jax(model_path, shape):
+    """Sizes 1-32 round up to a power of two, then to the data axis, as the
+    JAX engine's ``_batch_bucket`` does (at most six buckets)."""
+    from types import SimpleNamespace
+
+    from birdnet_tpu.parallel.engine import ShardedEngine as JEngine
+
+    eng = _build(tbt, model_path, LABELS, shape)._engine
+    jdp = j_make_mesh(jax.devices()[:shape[0] * shape[1]], shape=shape).shape["data"]
+    assert eng.dp == jdp
+    mine = {b: eng._batch_bucket(b) for b in range(1, 33)}
+    theirs = {b: JEngine._batch_bucket(SimpleNamespace(dp=jdp), b) for b in range(1, 33)}
+    assert mine == theirs and len(set(mine.values())) <= 6
+
+
+def test_padded_bucket_rows_are_sliced_off(model_path, single):
+    """Five segments on a 2x2 mesh pad to a bucket of 8 (past the data
+    axis' 6): per-request masks, predict_batch and a batch context agree
+    with the single device on the real rows."""
+    segs = [sine_segment(freq=f) for f in (400.0, 900.0, 1400.0, 2100.0, 2600.0)]
+    masks = np.random.default_rng(2).random((5, 10)) < 0.5
+    masks[:, 1] = True
+    meshed = _build(tbt, model_path, LABELS, (2, 2))
+    assert meshed._engine._batch_bucket(5) == 8
+    ref = single.predict_batch(segs, species_masks=masks)
+    got = meshed.predict_batch(segs, species_masks=masks)
+    ctx = meshed.create_batch_context(5)
+    in_ctx = meshed.predict_batch_with_context(ctx, segs, species_masks=masks)
+    assert len(got) == len(in_ctx) == 5
+    for row, a, b, c in zip(masks, got, in_ctx, ref):
+        _same(a, c)
+        _same(b, c)
+        assert all(row[p.index] for p in a.predictions)
+
+
 def test_cancelled_mesh_call_raises(sharded):
     token = tbt.CancellationToken()
     token.cancel()
