@@ -220,7 +220,7 @@ class _CapturedBatch:
     captured once into a CUDA graph over static device buffers."""
 
     def __init__(self, engine, shape, with_embeddings: bool):
-        from .ops.cuda.build import holding
+        from .ops.cuda.build import collector_paused, holding
         from .ops.topk import fused_sigmoid_topk
 
         self._engine = engine
@@ -255,8 +255,8 @@ class _CapturedBatch:
             torch.cuda.synchronize(device)
             self.graph = torch.cuda.CUDAGraph()
             # The graph keeps the cached operands it reads (``build.hold``).
-            with holding() as self._held, torch.cuda.graph(self.graph), \
-                    torch.inference_mode():
+            with holding() as self._held, collector_paused(), \
+                    torch.cuda.graph(self.graph), torch.inference_mode():
                 self.outs = step()
         except Exception as e:  # noqa: BLE001 - capture refused (a host sync,
             # an unsupported call): the context cannot exist on the card

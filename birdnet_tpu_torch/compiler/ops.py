@@ -240,6 +240,16 @@ def _static_int(x, what: str) -> int:
     return _static_ints(x, what)[0]
 
 
+def _axis(axis: int, ndim: int) -> int:
+    """``axis`` in ``[-ndim, ndim)`` as a non-negative axis. Any other axis
+    raises numpy's ``AxisError`` (a ValueError and an IndexError), as jnp
+    raises: adding the rank once would turn ``[-2 ndim, -ndim)`` into
+    another axis."""
+    if not -ndim <= axis < ndim:
+        raise np.exceptions.AxisError(axis, ndim)
+    return axis + ndim if axis < 0 else axis
+
+
 def _attr_str(ctx, name, default):
     v = ctx.attr(name, default)
     return v.decode() if isinstance(v, bytes) else v
@@ -1148,8 +1158,7 @@ def _layernorm(ctx, x, scale, bias=None):
     axis = int(ctx.attr("axis", -1))
     eps = float(ctx.attr("epsilon", 1e-5))
     x = _tensor(ctx, x, _device_of(ctx, x, scale, bias))
-    if axis < 0:
-        axis += x.ndim
+    axis = _axis(axis, x.ndim)
     axes = tuple(range(axis, x.ndim))
     mean, var = _jnp_mean(x, axes), _jnp_var(x, axes)
     inv = torch.rsqrt(var + eps)
@@ -1455,8 +1464,8 @@ def _squeeze(ctx, x, axes=None):
     ax = _axes_arg(ctx, axes)
     if ax is None:
         ax = [i for i, d in enumerate(x.shape) if d == 1]
-    ax = {a + x.ndim if a < 0 else a for a in ax}
-    bad = [a for a in ax if not 0 <= a < x.ndim or x.shape[a] != 1]
+    ax = {_axis(a, x.ndim) for a in ax}
+    bad = [a for a in ax if x.shape[a] != 1]
     if bad:
         raise ValueError(
             f"Squeeze axes {sorted(bad)} are not size-1 axes of shape "
@@ -1535,7 +1544,7 @@ def _slice(ctx, x, starts=None, ends=None, axes=None, steps=None):
     axes_l = list(range(len(starts))) if axes is None else _static_ints(axes, "Slice axes")
     steps_l = [1] * len(starts) if steps is None else _static_ints(steps, "Slice steps")
     for st, en, ax, sp in zip(starts, ends, axes_l, steps_l):
-        x = _slice_axis(x, ax + x.ndim if ax < 0 else ax, st, en, sp)
+        x = _slice_axis(x, _axis(ax, x.ndim), st, en, sp)
     return [x]
 
 
@@ -1585,9 +1594,7 @@ def _filled(out: torch.Tensor, ok, shape) -> torch.Tensor:
 @op("Gather", fold=True)
 def _gather(ctx, x, indices):
     x = _tensor(ctx, x, _device_of(ctx, x, indices))
-    axis = int(ctx.attr("axis", 0))
-    if axis < 0:
-        axis += x.ndim
+    axis = _axis(int(ctx.attr("axis", 0)), x.ndim)
     idx, ok = _checked_index(ctx, indices, x.device, x.shape[axis])
     out = x.index_select(axis, idx.reshape(-1))
     out = out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape) + tuple(x.shape[axis + 1:]))
@@ -1597,9 +1604,7 @@ def _gather(ctx, x, indices):
 @op("GatherElements", fold=True)
 def _gather_elements(ctx, x, indices):
     x = _tensor(ctx, x, _device_of(ctx, x, indices))
-    axis = int(ctx.attr("axis", 0))
-    if axis < 0:
-        axis += x.ndim
+    axis = _axis(int(ctx.attr("axis", 0)), x.ndim)
     idx, ok = _checked_index(ctx, indices, x.device, x.shape[axis])
     return [_filled(torch.gather(x, axis, idx), ok, tuple(idx.shape))]
 
@@ -1680,9 +1685,7 @@ def _scatter_elements(ctx, x, indices, updates):
     (birdnet_tpu/compiler/ops_extended.py:161)."""
     device = _device_of(ctx, x, indices, updates)
     x = _tensor(ctx, x, device)
-    axis = int(ctx.attr("axis", 0))
-    if axis < 0:
-        axis += x.ndim
+    axis = _axis(int(ctx.attr("axis", 0)), x.ndim)
     idx = _index(ctx, indices, device, x.shape[axis])
     upd = _tensor(ctx, updates, device)
     strides = _row_major_strides(x.shape)
@@ -1796,9 +1799,7 @@ def _onehot(ctx, indices, depth, values):
     device = _device_of(ctx, indices, values)
     idx = _tensor(ctx, indices, device)
     vals = _tensor(ctx, values, device)
-    axis = int(ctx.attr("axis", -1))
-    if axis < 0:
-        axis += idx.ndim + 1
+    axis = _axis(int(ctx.attr("axis", -1)), idx.ndim + 1)
     shape = [1] * (idx.ndim + 1)
     shape[axis] = d
     hit = idx.unsqueeze(axis) == torch.arange(d, device=device).reshape(shape)
@@ -1889,9 +1890,7 @@ def _reduce_mean(ctx, x, axes=None):
 def _arg_reduce(fn):
     def impl(ctx, x):
         x = _tensor(ctx, x)
-        axis = int(ctx.attr("axis", 0))
-        if axis < 0:
-            axis += x.ndim
+        axis = _axis(int(ctx.attr("axis", 0)), x.ndim)
         if int(ctx.attr("select_last_index", 0)):
             # torch.arg{max,min} give the FIRST tied index: flip the axis
             # and mirror the result for the last.
@@ -1921,7 +1920,7 @@ def _topk(ctx, x, k=None):
         if k_attr is None:
             raise ValueError("TopK (opset<10) requires the k attribute")
         kk = int(k_attr)
-    axis = int(ctx.attr("axis", -1))
+    axis = _axis(int(ctx.attr("axis", -1)), x.ndim)
     largest = int(ctx.attr("largest", 1))
     vals, idxs = torch.sort(x, dim=axis, descending=bool(largest), stable=True)
     return [vals.narrow(axis, 0, kk), idxs.narrow(axis, 0, kk).to(torch.int64)]
@@ -3490,13 +3489,10 @@ def _one_hot_of_argmax(x: torch.Tensor, axis: int) -> torch.Tensor:
 def _hardmax(ctx, x):
     x = _tensor(ctx, x)
     if ctx.opset >= 13:
-        axis = int(ctx.attr("axis", -1))
-        return [_one_hot_of_argmax(x, axis + x.ndim if axis < 0 else axis)]
+        return [_one_hot_of_argmax(x, _axis(int(ctx.attr("axis", -1)), x.ndim))]
     # opset < 13: coerce to 2-D from axis (as legacy Softmax), one-hot over
     # the flattened tail.
-    axis = int(ctx.attr("axis", 1))
-    if axis < 0:
-        axis += x.ndim
+    axis = _axis(int(ctx.attr("axis", 1)), x.ndim)
     lead = math.prod(x.shape[:axis])
     return [_one_hot_of_argmax(x.reshape(lead, -1), 1).reshape(x.shape)]
 

@@ -62,6 +62,7 @@ from .ops import (
     HOST_READS,
     _acc_product,
     _attr_str,
+    _axis,
     _f32_sum_matmul,
     _int_matmul_acc,
     _is_host,
@@ -2092,8 +2093,7 @@ def _unfold_tensor(ctx, x):
     size = int(ctx.attr("size"))
     step = int(ctx.attr("step", 1))
     x = _t(ctx, x)
-    if dim < 0:
-        dim += x.ndim
+    dim = _axis(dim, x.ndim)
     if (x.shape[dim] - size) // step + 1 <= 0:
         raise ValueError(
             f"com.microsoft.UnfoldTensor: size {size} exceeds dim "

@@ -41,6 +41,7 @@ from .ops import (
     _ONNX_TO_TORCH,
     OpContext,
     _attr_str,
+    _axis,
     _device_of,
     _filled,
     _is_host,
@@ -114,8 +115,7 @@ def _tensor_scatter(ctx, past, update, write_indices=None):
         raise ValueError(
             f"TensorScatter mode must be 'linear' or 'circular', got {mode!r}"
         )
-    if axis < 0:
-        axis += past.ndim
+    axis = _axis(axis, past.ndim)
     if axis == 0:
         raise ValueError("TensorScatter axis cannot be the batch dimension")
     if past.ndim != update.ndim:
@@ -937,8 +937,7 @@ def _split_to_sequence(ctx, x, split=None):
     axis = int(ctx.attr("axis", 0))
     host = _is_host(x)
     xv = np.asarray(x) if host else x
-    if axis < 0:
-        axis += xv.ndim
+    axis = _axis(axis, xv.ndim)
     n = xv.shape[axis]
 
     def part(off, size):
@@ -1132,9 +1131,7 @@ def _rms_norm(ctx, x, scale):
     orig = x.dtype
     stash = _ONNX_TO_TORCH[int(ctx.attr("stash_type", 1))]
     xs = x.to(stash)
-    if axis < 0:
-        axis += x.ndim
-    axes = tuple(range(axis, x.ndim))
+    axes = tuple(range(_axis(axis, x.ndim), x.ndim))
     ms = torch.mean(torch.square(xs), dim=axes, keepdim=True)
     y = xs * torch.rsqrt(ms + eps)
     return [(y * _tensor(ctx, scale, x.device).to(stash)).to(orig)]
@@ -1149,9 +1146,7 @@ def _simplified_layer_norm(ctx, x, scale):
     x = _tensor(ctx, x, _device_of(ctx, x, scale))
     axis = int(ctx.attr("axis", -1))
     eps = float(ctx.attr("epsilon", 1e-5))
-    if axis < 0:
-        axis += x.ndim
-    axes = tuple(range(axis, x.ndim))
+    axes = tuple(range(_axis(axis, x.ndim), x.ndim))
     xf = x.float()
     inv = torch.rsqrt(torch.mean(xf * xf, dim=axes, keepdim=True) + eps)
     y = (xf * inv).to(x.dtype) * _tensor(ctx, scale, x.device).to(x.dtype)

@@ -269,7 +269,7 @@ class _TileProgram:
         the body read the card on the host, the key's graph over each
         tile audio of ``audios``."""
         from ..batch_context import _WARMUP_CALLS
-        from ..ops.cuda.build import add_launches, holding, tally_launches
+        from ..ops.cuda.build import add_launches, collector_paused, holding, tally_launches
 
         eng = self._eng
         device = eng.device
@@ -286,7 +286,7 @@ class _TileProgram:
                 return
             for audio in audios:
                 graph = torch.cuda.CUDAGraph()
-                with tally_launches() as captured, holding() as held:
+                with tally_launches() as captured, holding() as held, collector_paused():
                     with torch.cuda.graph(graph, pool=eng._graph_pool, stream=side,
                                           capture_error_mode="thread_local"), \
                             torch.inference_mode():

@@ -107,11 +107,12 @@ class _MeshStep:
         """``fn()`` captured on ``device``: (graph, its static outputs, the
         launches the capture counted). The step keeps the cached operands
         the graph reads (``build.hold``)."""
-        from ..ops.cuda.build import add_launches, holding, tally_launches
+        from ..ops.cuda.build import add_launches, collector_paused, holding, tally_launches
 
         eng = self._eng
         graph = torch.cuda.CUDAGraph()
-        with _current(device), tally_launches() as captured, holding() as held:
+        with _current(device), tally_launches() as captured, holding() as held, \
+                collector_paused():
             with torch.cuda.graph(graph, pool=eng._pools[device], stream=eng._sides[device],
                                   capture_error_mode="thread_local"), \
                     torch.inference_mode():

@@ -10,13 +10,16 @@ scripts/README.md:20-46), on PyTorch:
   Chrome/Perfetto trace of the host and CUDA activity into a directory
   (the CLI's ``--profile``);
 - :func:`device_memory_stats` — the caching allocator's counters for a CUDA
-  device (``torch.cuda.memory_stats``).
+  device (``torch.cuda.memory_stats``);
+- :func:`card_description` — the card's name and power limit, as
+  nvidia-smi gives them, for the line beside a measurement.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -92,6 +95,21 @@ def trace(log_dir: str):
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def card_description(device=None) -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``'s
+    line for ``device`` (default the first card), or ``"cpu"`` for a host
+    device. A card may run below its maximum power, and then slower under
+    load, so every measurement keeps this beside it."""
+    device = torch.device("cuda", 0) if device is None else torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[device.index or 0]
 
 
 def device_memory_stats(device=None) -> Optional[Dict[str, int]]:

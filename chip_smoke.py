@@ -231,13 +231,24 @@ exits non-zero:
              file (4 seeded rows): the worst ten nodes of fast against fp32
              on the card, and the card against the host at fp32, every node
              within 1e-4 of its layer's scale.
-19. hunt    — scripts/torch_graph_hunt.py on the card: for each of its
+19. tools   — the port's counterparts of scripts/serve_bench.py,
+             bench_onnx.py and topk_bench.py on the card:
+             scripts/torch_serve_bench.py on the full-width v2.4 conv file
+             at fast (max_batch 32, waits 0 and 5 ms, 1 and 2 workers, 4
+             and 64 client threads, 2 s a row; no client may fail, the mean
+             fill in [1, 32]); scripts/torch_bench_onnx.py on the
+             torch-exported v2.4 and the CRNN at fast, batches 1 and 32,
+             eager and one captured graph replayed (outputs finite, the
+             graph's within FLOAT_NODE_TOL of the eager's); and
+             scripts/torch_topk_bench.py at its defaults ([128, 6522] bf16
+             logits, k 10: the exact forms agree, then us per tile).
+20. hunt    — scripts/torch_graph_hunt.py on the card: for each of its
              thirteen kinds of random torch-exported architectures
              (tests/_torch_grammars.py), the first two samples from seed
              10000 that the grammar draws valid and the exporter writes, at
              fp32 (TF32 off) against the torch module in eval mode and
              against the port on the host (atol 5e-4, rtol 1e-3).
-20. stage_profile — scripts/torch_stage_profile.py's two tables on the
+21. stage_profile — scripts/torch_stage_profile.py's two tables on the
              full-width v2.4 conv file at fast, tile 128: per milestone
              (frontend, stem, each MBConv block, head, logits; then with
              the default fusions: the frontend kernel, the stage prefix B4,
@@ -419,7 +430,7 @@ def time_ms(fn, reps: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with build.collector_paused(), torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -2437,16 +2448,13 @@ class TorchBirdnetV24(torch.nn.Module):
         return self.classifier(self.backbone(img).mean(dim=(2, 3)))
 
 
-def exported_files(tmp: str) -> dict:
-    """{name: (path, labels, oracle, sample rate, samples, family)}: the
-    torch-exported v2.4 and the three TF-dialect files, written from SEED;
-    ``oracle(batch)`` gives the file's outputs as numpy. The helpers come
-    from tests/ by path (they import neither package)."""
+def torch_v24_file(tmp: str) -> tuple:
+    """(path, the torch module) of the torch-exported v2.4, written from
+    SEED with BatchNorm statistics away from 0 and 1 and a dynamic batch.
+    The exporter comes from tests/ by path (it imports neither package)."""
     sys.path.insert(0, str(REPO / "tests"))
-    from _tf_dialect_models import build_tf_dialect_model
     from _torch_export import export_onnx_bytes
 
-    files = {}
     torch.manual_seed(SEED)
     module = TorchBirdnetV24().eval()
     with torch.no_grad():  # BatchNorm statistics away from 0 and 1
@@ -2458,6 +2466,19 @@ def exported_files(tmp: str) -> dict:
     Path(path).write_bytes(export_onnx_bytes(
         module, (torch.zeros(1, S),), input_names=["input"], output_names=["output_0"],
         dynamic_axes={"input": {0: "batch"}}))
+    return path, module
+
+
+def exported_files(tmp: str) -> dict:
+    """{name: (path, labels, oracle, sample rate, samples, family)}: the
+    torch-exported v2.4 and the three TF-dialect files, written from SEED;
+    ``oracle(batch)`` gives the file's outputs as numpy. The helpers come
+    from tests/ by path (they import neither package)."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from _tf_dialect_models import build_tf_dialect_model
+
+    files = {}
+    path, module = torch_v24_file(tmp)
     on_card = module.to(CARD)
 
     def torch_oracle(batch):
@@ -4080,6 +4101,59 @@ def phase_activation_diff(card: str, path: str) -> None:
 HUNT_SEEDS, HUNT_MAX_DRAWS = 2, 10
 
 
+# The tools phase: torch_serve_bench's sweep on the conv file at fast (each
+# row a fresh batcher, a warm-up of at most 1 s, then TOOLS_SERVE_SECONDS),
+# torch_bench_onnx on the torch-exported v2.4 and the CRNN at fast
+# (TOOLS_ONNX_RUNS timed runs per batch, eager and graph), torch_topk_bench
+# at its defaults.
+TOOLS_SERVE = {"batches": [32], "waits": [0.0, 5.0], "workers": [1, 2],
+               "clients": [4, 64], "seconds": 2.0}
+TOOLS_ONNX_BATCHES, TOOLS_ONNX_RUNS = (1, 32), 5
+
+
+def tools_onnx_rows(card: str, bench_onnx, name: str, path: str) -> None:
+    """torch_bench_onnx's rows of one file, each checked: both forms ran,
+    every output finite, the graph's outputs within FLOAT_NODE_TOL["fast"]
+    of the eager forward's scale."""
+    bench = bench_onnx.Bench(path, "fast", CARD)
+    for rec, eager, graph in bench_onnx.sweep(bench, TOOLS_ONNX_BATCHES, TOOLS_ONNX_RUNS):
+        if graph is None:
+            raise AssertionError(f"tools: {name} batch {rec['batch']}: no graph ({rec})")
+        finite = all(bool(torch.isfinite(o.float()).all()) for o in eager + graph)
+        scaled = max(float((g.float() - e.float()).abs().max() / e.float().abs().max())
+                     for e, g in zip(eager, graph))
+        line = {"phase": "tools_onnx", "card": card, "model": name, "precision": "fast",
+                **rec, "finite": finite, "graph_vs_eager_scaled": scaled}
+        emit(line)
+        if not finite or not scaled <= FLOAT_NODE_TOL["fast"]:
+            raise AssertionError(f"tools: {line}")
+
+
+def phase_tools(card: str, conv_path: str) -> None:
+    """The tools phase (see the module docstring)."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    import torch_bench_onnx as bench_onnx
+    import torch_serve_bench as serve_bench
+    import torch_topk_bench as topk_bench
+
+    t0 = time.perf_counter()
+    clf = serve_bench.build_classifier(conv_path, "fast", CARD)
+    for row in serve_bench.sweep(clf, **TOOLS_SERVE):
+        emit({"phase": "tools_serve", "card": card, "model": "v24_conv", **row})
+        if row["client_errors"] or not 1 <= row["mean_fill"] <= row["max_batch"]:
+            raise AssertionError(f"tools: serve row {row}")
+    del clf
+    t_serve = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        tools_onnx_rows(card, bench_onnx, "torch_v24", torch_v24_file(tmp)[0])
+        tools_onnx_rows(card, bench_onnx, "crnn_v24", crnn_file(tmp)[0])
+    torch.cuda.empty_cache()
+    t_onnx = time.perf_counter() - t0 - t_serve
+    emit({"phase": "tools_topk", "card": card, **topk_bench.run(CARD)})
+    emit({"phase": "tools_seconds", "card": card, "serve_s": t_serve, "onnx_s": t_onnx,
+          "seconds": time.perf_counter() - t0})
+
+
 def phase_hunt(card: str) -> None:
     sys.path.insert(0, str(REPO / "tests"))
     sys.path.insert(0, str(REPO / "scripts"))
@@ -4199,6 +4273,7 @@ def main() -> int:
         path_launches.append(phase_contrib(smi, paths))
         path_launches.append(phase_mesh(smi, paths, segs))
         phase_activation_diff(smi, paths["conv"])
+        phase_tools(smi, paths["conv"])
     phase_hunt(smi)
     phase_stage_profile(smi)
     # Each kernel's launches summed over its paths; B5's from its kernel

@@ -90,7 +90,7 @@ def device_ms(fn, reps: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with build.collector_paused(), torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()

@@ -32,7 +32,6 @@ import dataclasses
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -50,6 +49,7 @@ from birdnet_tpu_torch.compiler.importer import (  # noqa: E402
     params_to_torch,
 )
 from birdnet_tpu_torch.onnx import proto as P  # noqa: E402
+from birdnet_tpu_torch.utils.profiling import card_description  # noqa: E402
 
 FUSED_FRONTENDS = ("_FusedFrontend", "_FusedStftFrontend")
 
@@ -177,7 +177,7 @@ def prefix_forward(imported, tensor: str, precision: str, params, device):
 def _time_cuda(fn, x, reps: int, runs: int) -> float:
     """Median µs of one ``fn(x)`` over ``runs`` replays of a CUDA graph of
     ``reps`` calls (its cached operands held for the graph's life)."""
-    from birdnet_tpu_torch.ops.cuda.build import holding
+    from birdnet_tpu_torch.ops.cuda.build import collector_paused, holding
 
     device = x.device
     side = torch.cuda.Stream(device)
@@ -188,7 +188,8 @@ def _time_cuda(fn, x, reps: int, runs: int) -> float:
     torch.cuda.current_stream(device).wait_stream(side)
     torch.cuda.synchronize(device)
     graph = torch.cuda.CUDAGraph()
-    with holding() as held, torch.cuda.graph(graph), torch.inference_mode():
+    with holding() as held, collector_paused(), torch.cuda.graph(graph), \
+            torch.inference_mode():
         for _ in range(reps):
             fn(x)
     graph.replay()
@@ -276,10 +277,9 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_stage_profile: torch.cuda.is_available() is false")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    print(f"# device: {smi}")
     device = torch.device("cuda", 0)
+    smi = card_description(device)
+    print(f"# device: {smi}")
     S, unfused, fused = imported_models(args.model, args.int8, device)
     x = torch.from_numpy((np.random.default_rng(0).normal(size=(args.tile, S)) * 0.1)
                          .astype(np.float32)).to(device)

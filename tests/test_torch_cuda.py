@@ -1402,3 +1402,52 @@ def test_stream_graph_outlives_the_operand_caches(dev, tmp_path):
     torch.cuda.synchronize()
     for a, b in zip(first, again):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("where", ["stream", "batch_context"])
+def test_capture_survives_a_dead_graph_in_reach_of_the_collector(dev, tmp_path,
+                                                                 monkeypatch, where):
+    """Python's collector, run during a capture, finalizes the dead cycles
+    it finds; one that holds another CUDA graph destroys it there, which
+    invalidates the capture (cudaErrorStreamCaptureInvalidated: a stream
+    key's capture after earlier classifiers were dropped). Here the forward
+    drops such a cycle in each capture and then allocates enough to set off
+    a collection: the captures hold (the collector is paused), every cycle
+    was dropped, and the graphs answer as the eager path does."""
+    import gc
+
+    x = torch.ones(1024, device=dev)
+    victims = []
+    for _ in range(4):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            x.mul(3)
+        victims.append(graph)
+    del graph
+    clf = _small_classifier(tmp_path, "v24", "conv", policy="fp32")
+    eng = clf._streaming_engine() if where == "stream" else clf._engine
+    forward, dropped = eng._forward, []
+
+    def dropping(params, frames):
+        if victims and torch.cuda.is_current_stream_capturing():
+            cycle = [victims.pop()]
+            cycle.append(cycle)
+            del cycle
+            junk = [[] for _ in range(4 * gc.get_threshold()[0])]
+            dropped.append(len(junk))
+        return forward(params, frames)
+
+    monkeypatch.setattr(eng, "_forward", dropping)
+    if where == "stream":
+        eng.tile = 4
+        graph, eager = _graph_and_eager(eng, _recording(30, 48_000, "float32"))
+        for got, want in zip(graph, eager):
+            np.testing.assert_array_equal(got, want)
+        assert len(dropped) == 2  # one capture per ring slot
+    else:
+        ctx = clf.create_batch_context(4)
+        assert ctx.graph is not None and len(dropped) == 1
+        segs = _segments(4, "cpu", torch.float32).numpy()
+        for r, q in zip(clf.predict_batch_with_context(ctx, segs), clf.predict_batch(segs)):
+            np.testing.assert_array_equal(r.raw_scores, q.raw_scores)
+    gc.collect()
