@@ -25,8 +25,10 @@ drifting by ``tests/test_torch_codec.py``: ``errors``, ``types``,
 ``labels``, ``testutil``, ``utils/__init__``, ``utils/export``,
 ``serve/client``, ``compiler/optimize``, ``compiler/fuse_mbconv``,
 ``compiler/fuse_stage_prefix``, ``compiler/fuse_frontend``,
-``compiler/_melbank``, ``models/*`` and ``onnx/__init__``. Two copies carry one change each: ``onnx/proto`` makes
-``ml_dtypes`` optional, and the docstring of ``models/_builder`` names the
+``compiler/_melbank``, ``models/*`` and ``onnx/__init__``. Two copies carry one change each: ``onnx/proto``
+decodes bfloat16, float8 and int4/uint4 into its own ``WireTensor`` (a
+CPU torch tensor) instead of ml_dtypes arrays, so the package never
+imports ``ml_dtypes``, and the docstring of ``models/_builder`` names the
 upstream blob list by file name rather than by an absolute path.
 ``compiler/quantize`` is a copy whose calibration (``_collect_absmax``)
 runs on the port's interpreter on an explicit device; ``utils/audio_io`` a

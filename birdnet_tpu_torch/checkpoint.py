@@ -9,6 +9,11 @@ loading skips protobuf tensor materialization and the passes (the
 ONNX → weights "serialized once" conversion of SURVEY §5.4; reference
 analog: the persisted TensorRT engine, src/tensorrt_config.rs:221-267).
 
+A bfloat16, float8 or 4-bit tensor is written under ml_dtypes' dtype name
+(``bfloat16``, ``float8_e4m3fn``, ..., ``int4``, ``uint4``: what the JAX
+package writes) and read back into the codec's ``WireTensor`` without
+ml_dtypes, bit for bit.
+
 The manifest keeps the model's merged-decoder flag inputs
 (``dispatch_inputs``); a manifest without the key predates it, and loading
 re-detects the flags from the graph, as the JAX package does.
@@ -29,9 +34,42 @@ from .onnx import proto as onnx_proto
 _FORMAT_VERSION = 2  # v2: flat raw tensor entries (v1 was npz)
 
 
+def _dtype_name(a) -> str:
+    """The manifest's dtype name: numpy's, or for a wire value (bfloat16,
+    float8, int4, uint4) ml_dtypes' name, which the JAX package writes."""
+    if isinstance(a, onnx_proto.WireTensor):
+        return onnx_proto.WIRE_NAMES[a.data_type]
+    return str(a.dtype)
+
+
+def _tensor_bytes(a) -> bytes:
+    """An entry's raw bytes: a wire value's bits, a 4-bit value one nibble
+    per byte with the high half clear (ml_dtypes' int4/uint4 layout)."""
+    if isinstance(a, onnx_proto.Int4Tensor):
+        return (onnx_proto.wire_bits(a).astype(np.uint8) & 0x0F).tobytes()
+    if isinstance(a, onnx_proto.WireTensor):
+        return onnx_proto.wire_bits(a).tobytes()
+    return np.ascontiguousarray(a).tobytes()
+
+
+def _from_bytes(raw: bytes, dtype: str, shape):
+    """The inverse of :func:`_tensor_bytes` for the manifest's ``dtype``:
+    a wire name gives a ``WireTensor``, without ml_dtypes."""
+    code = onnx_proto._WIRE_BY_NAME.get(dtype)
+    if code is None:
+        return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)
+    if code in (onnx_proto.DataType.INT4, onnx_proto.DataType.UINT4):
+        nib = np.frombuffer(raw, dtype=np.uint8) & 0x0F
+        if code == onnx_proto.DataType.INT4:
+            nib = np.where(nib > 7, nib.astype(np.int16) - 16, nib)
+        return onnx_proto.wire_from_bits(nib, code, shape)
+    carrier = onnx_proto._WIRE_FLOATS[code][1]
+    return onnx_proto.wire_from_bits(np.frombuffer(raw, dtype=carrier), code, shape)
+
+
 def _tensor_meta(arrays) -> dict:
     return {
-        name: {"dtype": str(a.dtype), "shape": list(a.shape)}
+        name: {"dtype": _dtype_name(a), "shape": list(a.shape)}
         for name, a in arrays.items()
     }
 
@@ -66,9 +104,9 @@ def save_checkpoint(model: ImportedModel, path) -> None:
         # Flat raw-bytes entries: loading is a single read + frombuffer per
         # tensor (no npz header parsing / copies).
         for name, a in model.params.items():
-            zf.writestr(f"p/{name}", np.ascontiguousarray(a).tobytes())
+            zf.writestr(f"p/{name}", _tensor_bytes(a))
         for name, a in model.consts.items():
-            zf.writestr(f"c/{name}", np.ascontiguousarray(a).tobytes())
+            zf.writestr(f"c/{name}", _tensor_bytes(a))
 
 
 def load_checkpoint(path) -> ImportedModel:
@@ -86,9 +124,7 @@ def load_checkpoint(path) -> ImportedModel:
                 out = {}
                 for name, info in meta.items():
                     raw = zf.read(f"{prefix}/{name}")
-                    out[name] = np.frombuffer(raw, dtype=np.dtype(info["dtype"])).reshape(
-                        info["shape"]
-                    )
+                    out[name] = _from_bytes(raw, info["dtype"], info["shape"])
                 return out
 
             params = _load("p", manifest["params"])

@@ -80,7 +80,16 @@ def split_params(tensors: Dict[str, np.ndarray]):
     params: Dict[str, np.ndarray] = {}
     consts: Dict[str, np.ndarray] = {}
     for name, arr in tensors.items():
-        if np.issubdtype(arr.dtype, np.floating) and arr.size >= _PARAM_MIN_SIZE:
+        if isinstance(arr, onnx_proto.WireTensor):
+            # bfloat16 / float8 weights as float ones, 4-bit ones as int8
+            # ones: the JAX package's split leaves its ml_dtypes arrays
+            # among the compile-time constants, which its program holds on
+            # the device as the port's params are held.
+            big = (arr.numel() >= _QPARAM_MIN_SIZE and arr.ndim >= 2
+                   if isinstance(arr, onnx_proto.Int4Tensor)
+                   else arr.numel() >= _PARAM_MIN_SIZE)
+            (params if big else consts)[name] = arr
+        elif np.issubdtype(arr.dtype, np.floating) and arr.size >= _PARAM_MIN_SIZE:
             params[name] = arr
         elif (
             arr.dtype in (np.int8, np.uint8)
@@ -182,7 +191,11 @@ def import_onnx(source: Union[str, bytes, ModelProto],
     if optimize:
         from .optimize import optimize_graph
 
-        optimize_graph(graph, tensors)
+        _stand_in_wire_floats(tensors)
+        try:
+            optimize_graph(graph, tensors)
+        finally:
+            _restore_wire_floats(tensors)
 
     params, consts = split_params(tensors)
 
@@ -211,6 +224,39 @@ def import_onnx(source: Union[str, bytes, ModelProto],
     if auto_specialize:
         imported.dispatch_inputs = _find_dispatch_inputs(graph, input_names)
     return imported
+
+
+class _WireStandIn(np.ndarray):
+    """A float32 stand-in for a bfloat16 / float8 initializer while the
+    import-time passes (copies of the JAX package's, written for numpy)
+    run: its values are exact, and every array computed from it (a folded
+    BatchNormalization's weight and bias) carries its ``wire_type``, so it
+    goes back to that type, as the JAX package's ml_dtypes arrays do."""
+
+    def __array_finalize__(self, obj):
+        self.wire_type = getattr(obj, "wire_type", None)
+
+
+def _stand_in_wire_floats(tensors: Dict[str, object]) -> None:
+    """Each bfloat16 / float8 ``WireTensor`` of ``tensors`` as a
+    :class:`_WireStandIn`."""
+    for name, t in tensors.items():
+        if isinstance(t, onnx_proto.WireTensor) and not isinstance(
+                t, onnx_proto.Int4Tensor):
+            a = t.float().numpy().view(_WireStandIn)
+            a.wire_type = t.data_type
+            tensors[name] = a
+
+
+def _restore_wire_floats(tensors: Dict[str, object]) -> None:
+    """Each stand-in (and each float array computed from one) back in its
+    wire type, rounded from float32 (ml_dtypes' cast from float64 rounds
+    through float32 too)."""
+    for name, a in tensors.items():
+        if isinstance(a, _WireStandIn) and a.wire_type is not None:
+            dtype = onnx_proto._WIRE_FLOATS[a.wire_type][0]
+            f32 = torch.from_numpy(np.array(a, dtype=np.float32))
+            tensors[name] = onnx_proto.wire_tensor(f32.to(dtype))
 
 
 def _validate_refs(model: ImportedModel) -> None:
@@ -463,13 +509,30 @@ def interpret_graph(graph: GraphProto, opset: int, precision: str,
 def params_to_torch(params: Dict[str, np.ndarray],
                     device) -> Dict[str, torch.Tensor]:
     """The imported params (numpy, as both packages' ``ImportedModel``
-    holds them) as tensors on ``device``."""
+    holds them, or the codec's ``WireTensor`` for bfloat16, float8 and
+    4-bit weights) as tensors on ``device``."""
     device = torch.device(device)
-    # np.array copies: decoded weights are read-only views of the file.
-    return {
-        name: torch.from_numpy(np.array(arr)).to(device)
-        for name, arr in params.items()
-    }
+    return {name: _host_to_torch(arr, device) for name, arr in params.items()}
+
+
+def _host_to_torch(arr, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``, copied (decoded weights are
+    read-only views of the file). A bfloat16 or float8 ``WireTensor``
+    becomes a plain tensor of its dtype; a 4-bit one stays an
+    ``Int4Tensor`` on ``device``, so that lowerings still read its type."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.as_subclass(torch.Tensor).to(device, copy=True)
+        return t.as_subclass(onnx_proto.Int4Tensor) if isinstance(
+            arr, onnx_proto.Int4Tensor) else t
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _is_float_operand(arr) -> bool:
+    """A float host constant with at least one axis (bfloat16 and float8
+    included): an operand that moves to the device once."""
+    if isinstance(arr, onnx_proto.WireTensor):
+        return arr.ndim > 0 and not isinstance(arr, onnx_proto.Int4Tensor)
+    return np.issubdtype(arr.dtype, np.floating) and arr.ndim > 0
 
 
 # Inputs that a lowering reads on the host although they are float: the
@@ -493,14 +556,15 @@ def _host_float_inputs(graph: GraphProto) -> set:
 def consts_to_device(consts: Dict[str, np.ndarray], device,
                      graph: Optional[GraphProto] = None) -> Dict[str, object]:
     """The constants as the interpreter's environment holds them. Float
-    constants with at least one axis (small biases) are operands: they move
-    to ``device`` once, not per call. The rest stay host values, and so do
-    the float constants that ``graph`` reads as Resize/Upsample scales or
-    ROI (shapes of the result, needed on the host)."""
+    constants with at least one axis (small biases; bfloat16 and float8
+    too) are operands: they move to ``device`` once, not per call. The rest
+    stay host values (a 4-bit or 0-d wire value as its ``WireTensor``), and
+    so do the float constants that ``graph`` reads as Resize/Upsample
+    scales or ROI (shapes of the result, needed on the host)."""
     keep = _host_float_inputs(graph) if graph is not None else set()
     return {
-        name: torch.from_numpy(np.array(arr)).to(device)
-        if np.issubdtype(arr.dtype, np.floating) and arr.ndim and name not in keep
+        name: _host_to_torch(arr, device)
+        if _is_float_operand(arr) and name not in keep
         else arr
         for name, arr in consts.items()
     }

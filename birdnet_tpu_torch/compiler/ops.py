@@ -33,9 +33,13 @@ opset (``_GRADUATED_MS_OPS``); any other name fails at import, naming it
 with its domain.
 
 Values in the interpreter's environment are torch tensors (activations and
-float params) or numpy arrays (small constants, shapes, axes). A lowering
-whose inputs are all numpy answers in numpy (``op(..., fold=True)`` runs it
-on the host and hands back numpy arrays): the counterpart of the JAX
+float params) or host values: numpy arrays (small constants, shapes, axes)
+and, for the types numpy cannot hold without ml_dtypes (bfloat16, float8,
+int4/uint4), the codec's CPU ``WireTensor``, which a lowering receives as a
+tensor on the forward's device (a 4-bit one as an ``Int4Tensor``, which
+keeps its type). A lowering whose inputs are all host values answers with
+host values (``op(..., fold=True)`` runs it on the host and hands back
+numpy arrays, or ``WireTensor``s): the counterpart of the JAX
 interpreter's trace-time constant fold, so that an exporter's shape chains
 (``Shape → Gather → Unsqueeze → Concat → Reshape``) never touch the card.
 A lowering that meets a tensor moves its numpy operands to that tensor's
@@ -51,10 +55,11 @@ per step in the same way. An If on a tensor condition runs both branches
 and selects, so it reads nothing back.
 
 Dtypes follow the JAX lowering's jax.numpy promotion (``_promoted``), with
-two deliberate differences: ONNX int64 and float64 stay 64-bit (the JAX
-package runs with x64 off and computes them as int32/float32), and
+three deliberate differences: ONNX int64 and float64 stay 64-bit (the JAX
+package runs with x64 off and computes them as int32/float32),
 uint16/uint32/uint64, which torch computes only in part, raise
-``NotImplementedError`` naming the dtype where torch has no kernel.
+``NotImplementedError`` naming the dtype where torch has no kernel, and a
+4-bit value is held in an int8/uint8 container (torch has no 4-bit dtype).
 
 Precision policies, as in the JAX package:
 
@@ -91,6 +96,8 @@ import torch
 import torch.nn.functional as F
 
 from ..onnx.proto import DataType as _DT
+from ..onnx.proto import (Int4Tensor, WireTensor, wire_bits, wire_from_bits,
+                          wire_tensor)
 from ..ops.cuda.build import count_launch
 from ..ops.cuda.qconv import EPILOGUE_ACTS as _EPILOGUE_ACTS
 from ..ops.cuda.qconv import qconv1x1_requant
@@ -215,9 +222,11 @@ class OpContext:
 
 
 def _is_host(x) -> bool:
-    """True for a host value (numpy or Python), the port's counterpart of
-    the JAX package's compile-time static values."""
-    return not isinstance(x, torch.Tensor)
+    """True for a host value (numpy or Python, or a CPU ``WireTensor``: a
+    bfloat16, float8 or 4-bit value, which numpy cannot hold), the port's
+    counterpart of the JAX package's compile-time static values."""
+    return not isinstance(x, torch.Tensor) or (
+        isinstance(x, WireTensor) and x.device.type == "cpu")
 
 
 def _static_array(x, what: str) -> np.ndarray:
@@ -261,24 +270,34 @@ _SHARED_UPLOAD_MAX = 16 << 20
 
 
 @functools.lru_cache(maxsize=4096)
-def _device_array(raw: bytes, dtype: str, shape, device) -> torch.Tensor:
-    arr = np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)
-    return torch.from_numpy(arr.copy()).to(device)
+def _device_array(raw: bytes, dtype: torch.dtype, shape, device) -> torch.Tensor:
+    """The bytes ``raw`` as a tensor of ``dtype`` and ``shape`` on
+    ``device``: viewed on the host, so that a bfloat16 or float8 value
+    uploads as its bits."""
+    if not raw:  # a tensor of no bytes has no stride to view by
+        return torch.empty(shape, dtype=dtype, device=device)
+    t = torch.from_numpy(np.frombuffer(raw, dtype=np.uint8).copy())
+    return t.view(dtype).reshape(shape).to(device)
 
 
 def _on_device(x, device) -> torch.Tensor:
-    """``x`` as a tensor on ``device``. Host arrays are uploaded once per
-    value and shared: callers never write to the result."""
-    if isinstance(x, torch.Tensor):
+    """``x`` as a tensor on ``device``. Host arrays (and a CPU
+    ``WireTensor``, by its bits) are uploaded once per value and shared:
+    callers never write to the result."""
+    if isinstance(x, WireTensor) and x.device.type == "cpu":
+        arr, dtype = wire_bits(x), x.dtype
+    elif isinstance(x, torch.Tensor):
         return x.to(device)
-    arr = np.asarray(x)  # np.ascontiguousarray would make a 0-d value 1-d
+    else:
+        arr = np.asarray(x)  # np.ascontiguousarray would make a 0-d value 1-d
+        dtype = _torch_dtype(arr.dtype)
     if not arr.flags.c_contiguous:
         arr = np.ascontiguousarray(arr)
     if arr.nbytes > _SHARED_UPLOAD_MAX:
-        return torch.from_numpy(arr.copy()).to(device)
+        return torch.from_numpy(arr.copy()).to(device).view(dtype)
     from ..ops.cuda.build import hold
 
-    return hold(_device_array(arr.tobytes(), arr.dtype.str, arr.shape,
+    return hold(_device_array(arr.tobytes(), dtype, arr.shape,
                               torch.device(device)))
 
 
@@ -287,9 +306,11 @@ def _tensor(ctx: OpContext, x, device=None) -> torch.Tensor:
     host value reaches a CUDA device once per value (``_on_device``), so a
     forward uploads nothing per call after its first and a CUDA graph can
     capture it."""
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, torch.Tensor) and not _is_host(x):
         return x
     device = torch.device(device if device is not None else ctx.device)
+    if isinstance(x, WireTensor):
+        return x.as_subclass(torch.Tensor) if device.type == "cpu" else _on_device(x, device)
     if device.type != "cpu":
         return _on_device(x, device)
     arr = np.asarray(x)
@@ -347,6 +368,29 @@ _ONNX_TO_TORCH = {
     _DT.FLOAT8E5M2FNUZ: torch.float8_e5m2fnuz,
 }
 
+# The 4-bit types: their range and their 8-bit container. torch has no
+# 4-bit dtype: on the host an ``Int4Tensor`` carries the type.
+_FOUR_BIT = {_DT.INT4: (-8, 7, torch.int8), _DT.UINT4: (0, 15, torch.uint8)}
+
+
+def _four_bit(y: torch.Tensor, to: int) -> torch.Tensor:
+    """A 4-bit result in its container: on the host (a fold, or the CPU
+    forward) an ``Int4Tensor`` of type ``to``; on the card the plain
+    container."""
+    return wire_tensor(y, to) if y.device.type == "cpu" else y
+
+
+def _onnx_dtype(code: int) -> torch.dtype:
+    """The torch dtype of ONNX type ``code``; an unsupported one raises
+    naming it."""
+    dtype = _ONNX_TO_TORCH.get(code)
+    if dtype is None:
+        raise NotImplementedError(
+            f"ONNX data type {code} has no torch dtype in birdnet_tpu_torch"
+        )
+    return dtype
+
+
 _WIDE_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
 
 
@@ -361,10 +405,26 @@ def _wide_unsigned(args) -> List[str]:
     return sorted(found)
 
 
+def _wire_operand(ctx, a):
+    """A host ``WireTensor`` argument as the operand a lowering takes: a
+    bfloat16 or float8 one as a plain tensor on the forward's device (numpy
+    cannot hold it, so no lowering reads it on the host); a 4-bit one there
+    as an ``Int4Tensor``, which keeps its type."""
+    if isinstance(a, Int4Tensor):
+        if ctx.device.type == "cpu":
+            return a
+        return _on_device(a, ctx.device).as_subclass(Int4Tensor)
+    return _tensor(ctx, a)
+
+
 def _checked(fn, ctx, args):
-    """``fn(ctx, *args)``, with torch's missing kernels for the wide
+    """``fn(ctx, *args)``, with host ``WireTensor`` arguments as their
+    operands (``_wire_operand``) and torch's missing kernels for the wide
     unsigned types reported as such (torch computes uint16/32/64 only in
     part; the port computes them in no other dtype)."""
+    if any(isinstance(a, WireTensor) and a.device.type == "cpu" for a in args):
+        args = [_wire_operand(ctx, a) if isinstance(a, WireTensor) and a.device.type == "cpu"
+                else a for a in args]
     try:
         return fn(ctx, *args)
     except NotImplementedError as e:
@@ -377,21 +437,27 @@ def _checked(fn, ctx, args):
         raise
 
 
+def _fold_result(o):
+    """A lowering's CPU result as a host value: numpy, or for a result
+    numpy cannot hold (bfloat16, float8) a ``WireTensor``; a 4-bit
+    ``Int4Tensor`` stays one."""
+    if not isinstance(o, torch.Tensor) or isinstance(o, WireTensor):
+        return o
+    if o.dtype in _WIRE_FLOAT_DTYPES:
+        return wire_tensor(o)
+    return o.numpy()
+
+
 def _folding(fn):
-    """The lowering ``fn``, answering in numpy when every input is a host
-    value: it runs on the host and its tensors come back as numpy arrays
-    (what the JAX interpreter's trace-time fold gives). A result that numpy
-    cannot hold (bf16, float8) is computed on the forward's device
-    instead."""
+    """The lowering ``fn``, answering with host values when every input is
+    one: it runs on the host and its tensors come back as numpy arrays
+    (what the JAX interpreter's trace-time fold gives), or, where numpy
+    cannot hold them, as CPU ``WireTensor``s."""
 
     @functools.wraps(fn)
     def impl(ctx, *args):
         if all(_is_host(a) for a in args):
-            outs = _checked(fn, ctx.on("cpu"), args)
-            try:
-                return [o.numpy() if isinstance(o, torch.Tensor) else o for o in outs]
-            except TypeError:
-                pass
+            return [_fold_result(o) for o in _checked(fn, ctx.on("cpu"), args)]
         return _checked(fn, ctx, args)
 
     return impl
@@ -399,15 +465,19 @@ def _folding(fn):
 
 # Precision policies (birdnet_tpu/compiler/ops.py:177-206).
 _BF16_OPERAND_POLICIES = ("mixed", "fast", "bf16")
+_NARROW_FLOATS = (torch.bfloat16, torch.float16)
 
 
 def _mxu_operands(ctx: OpContext, *xs):
-    """Apply the precision policy to matmul/conv operands."""
+    """Apply the precision policy to matmul/conv operands. Under ``fp32``
+    bfloat16 and float16 operands widen to float32: the JAX lowering's
+    ``preferred_element_type=float32`` gives their exact products, float32
+    sums and a float32 result."""
     if ctx.precision in _BF16_OPERAND_POLICIES:
         return tuple(
             x.to(torch.bfloat16) if x.is_floating_point() else x for x in xs
         )
-    return xs
+    return tuple(x.float() if x.dtype in _NARROW_FLOATS else x for x in xs)
 
 
 def _bf16_in_f32(*xs):
@@ -500,6 +570,7 @@ _FLOAT8_DTYPES = (
     torch.float8_e4m3fn, torch.float8_e4m3fnuz,
     torch.float8_e5m2, torch.float8_e5m2fnuz,
 )
+_WIRE_FLOAT_DTYPES = (torch.bfloat16,) + _FLOAT8_DTYPES
 
 # The bits XLA's float32 -> float8 conversion gives (ml_dtypes' too), which
 # the JAX lowerings produce: round to nearest even, and past the largest
@@ -551,13 +622,15 @@ def _cast(ctx, x):
         if to is None:
             raise ValueError(f"Cast: unknown legacy dtype name {name!r}")
     to = int(to)
-    if to in (_DT.INT4, _DT.UINT4):
-        raise NotImplementedError(
-            "Cast to a 4-bit type: torch has no int4/uint4 dtype (the JAX "
-            "lowering saturates into jnp.int4/uint4)"
-        )
-    target = _ONNX_TO_TORCH[to]
     x = _tensor(ctx, x)
+    if to in _FOUR_BIT:
+        # 4-bit targets round and saturate per the ONNX spec
+        # (birdnet_tpu/compiler/ops.py:245-250), into the 8-bit container.
+        lo, hi, container = _FOUR_BIT[to]
+        if x.is_floating_point():
+            x = torch.round(x.float())
+        return [_four_bit(x.clamp(lo, hi).to(container), to)]
+    target = _onnx_dtype(to)
     if target in _FLOAT8_DTYPES:
         x = x.float()
         if int(ctx.attr("saturate", 1)):
@@ -572,8 +645,24 @@ def _cast(ctx, x):
 
 @op("CastLike", fold=True)
 def _cast_like(ctx, x, like):
+    """``x.astype(like.dtype)`` as jax.numpy converts: float8 targets take
+    XLA's bits (no saturation), 4-bit ones (an ``Int4Tensor`` ``like``)
+    truncate and saturate a float and wrap an integer into the 4-bit
+    range."""
+    x = _tensor(ctx, x)
+    if isinstance(like, Int4Tensor):
+        to = like.data_type
+        lo, hi, container = _FOUR_BIT[to]
+        if x.is_floating_point():
+            y = torch.trunc(x.float()).clamp(lo, hi).to(container)
+        else:
+            nib = x.to(torch.int64) & 0x0F
+            y = (torch.where(nib > hi, nib - 16, nib) if lo else nib).to(container)
+        return [_four_bit(y, to)]
     dtype = like.dtype if isinstance(like, torch.Tensor) else _torch_dtype(np.asarray(like).dtype)
-    return [_tensor(ctx, x).to(dtype)]
+    if dtype in _FLOAT8_DTYPES:
+        return [_to_float8(x.float(), dtype)]
+    return [x.to(dtype)]
 
 
 @op("Constant")
@@ -609,6 +698,10 @@ def _constant_of_shape(ctx, shape):
     if v is None:
         return [np.zeros(dims, dtype=np.float32)]
     fill = v.to_numpy()
+    if isinstance(fill, WireTensor):
+        bits = wire_bits(fill).reshape(-1)
+        return [wire_from_bits(np.full(dims, bits[0], bits.dtype),
+                               fill.data_type, dims)]
     return [np.full(dims, fill.reshape(-1)[0], dtype=fill.dtype)]
 
 
@@ -1125,6 +1218,21 @@ def _conv_transpose(ctx, x, w, b=None):
 def _batchnorm(ctx, x, scale, bias, mean, var):
     """Inference-form BatchNormalization (graphs where import-time folding
     into the preceding Conv does not apply)."""
+    if ctx.opset <= 6:
+        # Legacy dialect (birdnet_tpu/compiler/ops.py:810-826): is_test,
+        # consumed_inputs and momentum are ignorable for the single-output
+        # inference form; the multi-output training form and spatial=0
+        # (per-element statistics) raise as the JAX lowering does.
+        if ctx.num_outputs > 1:
+            raise NotImplementedError(
+                "legacy BatchNormalization training form (multiple "
+                "outputs, is_test=0) is not supported; inference-only "
+                "framework"
+            )
+        if not int(ctx.attr("spatial", 1)):
+            raise NotImplementedError(
+                "legacy BatchNormalization spatial=0 is not supported"
+            )
     eps = float(ctx.attr("epsilon", 1e-5))
     x = _tensor(ctx, x)
     shape = (1, -1) + (1,) * (x.ndim - 2)
@@ -2337,14 +2445,9 @@ def _dequantize_linear(ctx, x, scale, zero_point=None):
 
 
 def _float8_zero_point(zero_point) -> Optional[torch.dtype]:
-    """The float8 dtype of a zero point (a tensor, or a host array of
-    ml_dtypes' float8, whose names torch shares), else None."""
-    if zero_point is None:
-        return None
-    if isinstance(zero_point, torch.Tensor):
-        dtype = zero_point.dtype
-    else:
-        dtype = getattr(torch, np.asarray(zero_point).dtype.name, None)
+    """The float8 dtype of a zero point (a tensor or a ``WireTensor``),
+    else None."""
+    dtype = getattr(zero_point, "dtype", None)
     return dtype if dtype in _FLOAT8_DTYPES else None
 
 
@@ -2355,11 +2458,14 @@ def _quantize_linear(ctx, x, scale, zero_point=None):
     ``output_dtype`` attribute (opset 21) or defaults to uint8. A float8
     target (opset 19+; its zero point is 0 by the spec and unused, as in
     the JAX lowering) takes ``x / scale``, clamped to the format's finite
-    range when ``saturate`` is 1 (the default), cast as XLA casts."""
+    range when ``saturate`` is 1 (the default), cast as XLA casts. A 4-bit
+    zero point (an ``Int4Tensor``) saturates into [-8, 7] / [0, 15], held
+    in its 8-bit container."""
     x = _tensor(ctx, x).float()
     out_dtype = _float8_zero_point(zero_point)
     if out_dtype is not None:
         zero_point = None
+    four_bit = _FOUR_BIT.get(getattr(zero_point, "data_type", None))
     scale, zp = _qdq_scale_zp(ctx, x, scale, zero_point)
     if zp is not None:
         out_dtype = zp.dtype
@@ -2384,8 +2490,12 @@ def _quantize_linear(ctx, x, scale, zero_point=None):
     q = torch.round(x / scale.float())
     if zp is not None:
         q = q + zp.float()
-    info = torch.iinfo(out_dtype)
-    return [q.clamp(info.min, info.max).to(out_dtype)]
+    if four_bit is not None:
+        lo, hi, _ = four_bit
+    else:
+        info = torch.iinfo(out_dtype)
+        lo, hi = info.min, info.max
+    return [q.clamp(lo, hi).to(out_dtype)]
 
 
 def _quant_pair(q: torch.Tensor, zp):

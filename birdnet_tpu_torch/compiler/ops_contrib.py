@@ -55,6 +55,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..onnx.proto import DataType, Int4Tensor
 from ..ops.cuda.build import count_launch
 from .ops import (
     _BF16_OPERAND_POLICIES,
@@ -1033,15 +1034,15 @@ def _matmul_nbits(ctx, a, b, scales, zero_points=None, g_idx=None,
 
 
 def _int_codes(ctx, x, device):
-    """A quantized table as int32 codes and whether its type is signed:
-    the codec's 4-bit arrays (ml_dtypes int4/uint4) widen on the host."""
+    """A quantized table as codes on ``device``, whether its type is signed
+    and whether it packs 4-bit pairs (uint8). The codec's 4-bit tensors
+    (``Int4Tensor``: int4 / uint4 values in their 8-bit container) widen to
+    int32 codes, unpacked."""
+    if isinstance(x, Int4Tensor):
+        codes = _on_device(x, device).to(torch.int32)
+        return codes, x.data_type == DataType.INT4, False
     if _is_host(x):
-        arr = np.asarray(x)
-        name = arr.dtype.name
-        if name in ("int4", "uint4"):
-            return (_on_device(arr.astype(np.int32), device), name == "int4",
-                    False)
-        x = _on_device(arr, device)
+        x = _on_device(np.asarray(x), device)
     signed = x.dtype == torch.int8
     return x, signed, x.dtype == torch.uint8
 

@@ -141,17 +141,26 @@ class DataType:
     INT4 = 22
 
 
-# ml_dtypes (which ships with jax) provides numpy-registered bfloat16/float8
-# and int4 scalar types. This package must import without it: float32,
-# int64 and int16 models never need it, and the wire types that do raise
-# a ModelLoadError naming the missing package (see ``_require_ml_dtypes``).
-try:  # noqa: E402
-    import ml_dtypes as _mld
-except ImportError:
-    _mld = None
+# The wire types numpy holds only through ml_dtypes (which ships with jax):
+# bfloat16, the four float8 types and int4/uint4. This package never
+# imports ml_dtypes, installed or not: such a tensor decodes into a CPU
+# torch tensor of class ``WireTensor`` (``Int4Tensor`` for the 4-bit
+# types), the same representation on every machine.
+import torch  # noqa: E402
 
-# Wire types whose numpy form comes from ml_dtypes.
-_ML_DTYPES_TYPES = {
+# Wire type -> (torch dtype, the numpy type of its bits).
+_WIRE_FLOATS = {
+    DataType.BFLOAT16: (torch.bfloat16, np.uint16),
+    DataType.FLOAT8E4M3FN: (torch.float8_e4m3fn, np.uint8),
+    DataType.FLOAT8E4M3FNUZ: (torch.float8_e4m3fnuz, np.uint8),
+    DataType.FLOAT8E5M2: (torch.float8_e5m2, np.uint8),
+    DataType.FLOAT8E5M2FNUZ: (torch.float8_e5m2fnuz, np.uint8),
+}
+# The 4-bit wire types and their 8-bit containers.
+_WIRE_INT4 = {DataType.INT4: torch.int8, DataType.UINT4: torch.uint8}
+_TORCH_TO_WIRE = {dt: code for code, (dt, _) in _WIRE_FLOATS.items()}
+# The wire types' names, which are ml_dtypes' (and the .btck format's).
+WIRE_NAMES = {
     DataType.BFLOAT16: "bfloat16",
     DataType.FLOAT8E4M3FN: "float8_e4m3fn",
     DataType.FLOAT8E4M3FNUZ: "float8_e4m3fnuz",
@@ -160,19 +169,90 @@ _ML_DTYPES_TYPES = {
     DataType.INT4: "int4",
     DataType.UINT4: "uint4",
 }
+_WIRE_BY_NAME = {name: code for code, name in WIRE_NAMES.items()}
 
 
-def _require_ml_dtypes(data_type: int, name: str) -> None:
-    """Raise a ModelLoadError naming ml_dtypes when a tensor of a wire type
-    that only ml_dtypes can represent (bf16, fp8, int4) meets its absence."""
-    if _mld is None:
-        from ..errors import ModelLoadError
+class WireTensor(torch.Tensor):
+    """A value of a wire type numpy cannot hold: a torch tensor of
+    ``torch.bfloat16`` or a ``torch.float8_*`` dtype, viewed from the
+    wire's bits. Decoded initializers, Constant values and host folds
+    are CPU tensors of this class, which marks them as host values (the
+    JAX package's compile-time constants). Operations on it give plain
+    tensors."""
 
-        raise ModelLoadError(
-            f"tensor {name!r} has ONNX data type "
-            f"{_ML_DTYPES_TYPES[data_type]}, which needs the 'ml_dtypes' "
-            f"package; install it to load this model"
+    __torch_function__ = torch._C._disabled_torch_function_impl
+
+    @property
+    def data_type(self) -> int:
+        return _TORCH_TO_WIRE[self.dtype]
+
+
+class Int4Tensor(WireTensor):
+    """An int4 (``int8`` container, values in [-8, 7]) or uint4 (``uint8``
+    container, values in [0, 15]) tensor. torch has no 4-bit dtype, so the
+    class carries the wire type: ``QuantizeLinear`` and ``CastLike`` read
+    it to saturate into the 4-bit range, and checkpoints name it."""
+
+    @property
+    def data_type(self) -> int:
+        return DataType.INT4 if self.dtype == torch.int8 else DataType.UINT4
+
+
+def wire_tensor(t: torch.Tensor, data_type: Optional[int] = None) -> WireTensor:
+    """``t`` (a CPU tensor) as a :class:`WireTensor`; a 4-bit
+    ``data_type`` (or an ``Int4Tensor`` ``t``) gives an
+    :class:`Int4Tensor` of the container's values."""
+    if isinstance(t, Int4Tensor) or data_type in _WIRE_INT4:
+        if data_type is not None and t.dtype != _WIRE_INT4[data_type]:
+            t = t.to(_WIRE_INT4[data_type])
+        return t.as_subclass(Int4Tensor)
+    if t.dtype not in _TORCH_TO_WIRE:
+        raise ValueError(f"no ONNX wire type holds torch dtype {t.dtype}")
+    return t.as_subclass(WireTensor)
+
+
+def wire_from_bits(bits: np.ndarray, data_type: int, shape) -> WireTensor:
+    """A bfloat16 / float8 tensor of ``shape`` from its bits (uint16 or
+    uint8 values), or a 4-bit tensor from its container's values."""
+    if data_type in _WIRE_INT4:
+        container = np.int8 if data_type == DataType.INT4 else np.uint8
+        t = torch.from_numpy(np.array(bits, dtype=container).reshape(shape))
+        return wire_tensor(t, data_type)
+    dtype, carrier = _WIRE_FLOATS[data_type]
+    n = int(np.prod(shape)) if len(shape) else 1
+    flat = np.array(bits, dtype=carrier).reshape(-1)
+    if flat.size != n:
+        raise ValueError(
+            f"{WIRE_NAMES[data_type]} payload holds {flat.size} elements, "
+            f"shape {tuple(shape)} needs {n}"
         )
+    t = torch.from_numpy(flat).view(dtype).reshape(tuple(shape))
+    return t.as_subclass(WireTensor)
+
+
+def wire_bits(t: torch.Tensor) -> np.ndarray:
+    """The inverse of :func:`wire_from_bits`: a bfloat16 / float8 tensor's
+    bits as uint16/uint8 values, a 4-bit tensor's container values, in
+    ``t``'s shape."""
+    t = t.detach().cpu().as_subclass(torch.Tensor).contiguous()
+    if t.dtype in (torch.int8, torch.uint8):
+        return t.numpy()
+    _, carrier = _WIRE_FLOATS[_TORCH_TO_WIRE[t.dtype]]
+    return t.reshape(-1).view(torch.uint8).numpy().view(carrier).reshape(t.shape)
+
+
+def wire_type_of(x) -> Optional[int]:
+    """The wire type of a wire value (a ``WireTensor``, a torch tensor of
+    bfloat16 or a float8 dtype, or an ml_dtypes numpy array, read by its
+    dtype's name without importing ml_dtypes), else None."""
+    if isinstance(x, WireTensor):
+        return x.data_type
+    if isinstance(x, torch.Tensor):
+        return _TORCH_TO_WIRE.get(x.dtype)
+    dtype = getattr(x, "dtype", None)
+    if isinstance(dtype, np.dtype):
+        return _WIRE_BY_NAME.get(dtype.name)
+    return None
 
 
 _DTYPE_TO_NUMPY = {
@@ -189,14 +269,6 @@ _DTYPE_TO_NUMPY = {
     DataType.UINT32: np.dtype(np.uint32),
     DataType.UINT64: np.dtype(np.uint64),
 }
-if _mld is not None:
-    # Packed 4-bit wire tensors decode to ml_dtypes int4/uint4 arrays
-    # (one byte per element in memory) — see ``to_numpy``. Keeping the
-    # 4-bit dtype keeps the true [-8,7]/[0,15] range.
-    _DTYPE_TO_NUMPY.update(
-        {dt: np.dtype(getattr(_mld, attr))
-         for dt, attr in _ML_DTYPES_TYPES.items()}
-    )
 
 _NUMPY_TO_DTYPE = {
     np.dtype(np.float32): DataType.FLOAT,
@@ -212,9 +284,6 @@ _NUMPY_TO_DTYPE = {
     np.dtype(np.uint32): DataType.UINT32,
     np.dtype(np.uint64): DataType.UINT64,
 }
-_NUMPY_TO_DTYPE.update(
-    {_DTYPE_TO_NUMPY[dt]: dt for dt in _ML_DTYPES_TYPES if dt in _DTYPE_TO_NUMPY}
-)
 
 
 _DATA_LOCATION_EXTERNAL = 1
@@ -283,14 +352,12 @@ class TensorProto:
                 dtype=object,
             )
             return arr.reshape(shape)
-        if self.data_type in _ML_DTYPES_TYPES:
-            _require_ml_dtypes(self.data_type, self.name)
+        if self.data_type in WIRE_NAMES:
+            return self._to_wire()
         if self.data_type not in _DTYPE_TO_NUMPY:
             raise ValueError(f"unsupported tensor data_type {self.data_type}")
         dtype = _DTYPE_TO_NUMPY[self.data_type]
         shape = tuple(self.dims)
-        if self.data_type in (DataType.INT4, DataType.UINT4):
-            return self._unpack_int4(shape)
         if self.raw_data:
             arr = np.frombuffer(self.raw_data, dtype=dtype)
         elif self.float_data and self.data_type == DataType.FLOAT:
@@ -301,17 +368,6 @@ class TensorProto:
             # The ONNX spec stores fp16 payloads in int32_data as uint16
             # bit patterns; reinterpret, don't value-convert.
             arr = np.asarray(self.int32_data, dtype=np.uint16).view(np.float16)
-        elif self.int32_data and self.data_type in (
-            DataType.BFLOAT16,
-            DataType.FLOAT8E4M3FN,
-            DataType.FLOAT8E4M3FNUZ,
-            DataType.FLOAT8E5M2,
-            DataType.FLOAT8E5M2FNUZ,
-        ):
-            # Same spec rule as fp16: bit patterns in int32_data (uint16
-            # for bf16, uint8 for the float8 family); reinterpret.
-            carrier = np.uint16 if self.data_type == DataType.BFLOAT16 else np.uint8
-            arr = np.asarray(self.int32_data, dtype=carrier).view(dtype)
         elif self.int32_data and self.data_type in (
             DataType.INT32,
             DataType.INT16,
@@ -341,14 +397,36 @@ class TensorProto:
             arr = np.zeros(0, dtype=dtype)
         return arr.reshape(shape)
 
+    def _to_wire(self) -> WireTensor:
+        """Decode a bfloat16 / float8 / int4 / uint4 tensor into a CPU
+        :class:`WireTensor`. bfloat16 and float8 payloads are bit patterns,
+        in ``raw_data`` or (the spec's alternative, as for fp16) one per
+        ``int32_data`` entry; 4-bit payloads pack two per byte."""
+        shape = tuple(self.dims)
+        if self.data_type in _WIRE_INT4:
+            return wire_from_bits(self._unpack_int4(shape), self.data_type, shape)
+        _, carrier = _WIRE_FLOATS[self.data_type]
+        if self.raw_data:
+            bits = np.frombuffer(self.raw_data, dtype=carrier)
+        elif self.int32_data:
+            bits = np.asarray(self.int32_data, dtype=np.int64).astype(carrier)
+        else:
+            n_expected = int(np.prod(shape)) if shape else 0
+            if n_expected:
+                raise ValueError(
+                    f"tensor {self.name!r} (dtype {self.data_type}, shape "
+                    f"{shape}) carries no data in any supported field"
+                )
+            bits = np.zeros(0, dtype=carrier)
+        return wire_from_bits(bits, self.data_type, shape)
+
     def _unpack_int4(self, shape) -> np.ndarray:
         """Decode a packed 4-bit tensor (opset 21): two elements per byte,
         low nibble first, odd element counts padded with a trailing
         nibble. Both storage forms pack — ``raw_data`` bytes and
         ``int32_data`` entries each carry two nibbles (the onnx.helper
-        "4bitx2" convention). Returns an ml_dtypes int4/uint4 array (one
-        byte per element in memory) so downstream ops keep the true
-        4-bit value range."""
+        "4bitx2" convention). Returns the values (int8 in [-8, 7] or
+        uint8 in [0, 15]) as a flat numpy array."""
         n = int(np.prod(shape)) if shape else 1
         if self.raw_data:
             packed = np.frombuffer(self.raw_data, dtype=np.uint8)
@@ -374,12 +452,18 @@ class TensorProto:
         nib = nib[:n]
         if self.data_type == DataType.INT4:
             arr = nib.astype(np.int8)
-            arr = np.where(arr > 7, arr - 16, arr).astype(np.int8)
-            return arr.astype(_DTYPE_TO_NUMPY[DataType.INT4]).reshape(shape)
-        return nib.astype(_DTYPE_TO_NUMPY[DataType.UINT4]).reshape(shape)
+            return np.where(arr > 7, arr - 16, arr).astype(np.int8)
+        return nib
 
     @staticmethod
     def from_numpy(arr: np.ndarray, name: str = "") -> "TensorProto":
+        # A wire value (a WireTensor, a torch bfloat16 / float8 tensor, or
+        # an ml_dtypes array) encodes as its wire type.
+        wire = wire_type_of(arr)
+        if wire is not None:
+            return TensorProto._from_wire(arr, wire, name)
+        if isinstance(arr, torch.Tensor):
+            arr = arr.detach().cpu().numpy()
         # NB: np.ascontiguousarray promotes 0-d arrays to 1-d, which would
         # silently corrupt scalar tensor shapes (Loop trip counts, scalar
         # thresholds) — only invoke it on non-contiguous data.
@@ -398,22 +482,32 @@ class TensorProto:
             arr = np.ascontiguousarray(arr)
         if arr.dtype not in _NUMPY_TO_DTYPE:
             raise ValueError(f"unsupported numpy dtype {arr.dtype}")
-        dt = _NUMPY_TO_DTYPE[arr.dtype]
-        if dt in (DataType.INT4, DataType.UINT4):
-            # ml_dtypes int4 arrays are one byte per element in memory;
-            # the wire format packs two nibbles per byte, low first.
-            flat = arr.reshape(-1).astype(np.uint8) & 0x0F
+        return TensorProto(
+            name=name,
+            data_type=_NUMPY_TO_DTYPE[arr.dtype],
+            dims=list(arr.shape),
+            raw_data=arr.tobytes(),
+        )
+
+    @staticmethod
+    def _from_wire(x, data_type: int, name: str) -> "TensorProto":
+        """Encode a wire value: bfloat16 / float8 bits as ``raw_data``,
+        4-bit values packed two per byte, low nibble first."""
+        if isinstance(x, torch.Tensor):
+            bits = wire_bits(x)
+        else:  # an ml_dtypes array: its bytes are the bits (4-bit: one
+            # nibble per byte, the high half clear)
+            bits = np.ascontiguousarray(x).view(np.uint16 if x.dtype.itemsize == 2 else np.uint8)
+        shape = list(bits.shape)
+        if data_type in _WIRE_INT4:
+            flat = bits.reshape(-1).astype(np.uint8) & 0x0F
             if flat.size % 2:
                 flat = np.concatenate([flat, np.zeros(1, np.uint8)])
             payload = (flat[0::2] | (flat[1::2] << 4)).tobytes()
         else:
-            payload = arr.tobytes()
-        return TensorProto(
-            name=name,
-            data_type=dt,
-            dims=list(arr.shape),
-            raw_data=payload,
-        )
+            payload = np.ascontiguousarray(bits).tobytes()
+        return TensorProto(name=name, data_type=data_type, dims=shape,
+                           raw_data=payload)
 
 
 @dataclass
@@ -438,10 +532,19 @@ class SparseTensorProto:
         return self.values.name if self.values is not None else ""
 
     def to_dense(self) -> np.ndarray:
-        """Materialize as a dense numpy array (zero-fill + scatter)."""
+        """Materialize as a dense numpy array (zero-fill + scatter); wire
+        values (bfloat16, float8, 4-bit) scatter their bits into a dense
+        ``WireTensor``."""
         if self.values is None:
             raise ValueError("sparse tensor has no values tensor")
-        vals = self.values.to_numpy().reshape(-1)
+        vals = self.values.to_numpy()
+        if isinstance(vals, WireTensor):
+            shape = tuple(int(d) for d in self.dims)
+            dense = self._scatter(wire_bits(vals).reshape(-1))
+            return wire_from_bits(dense, vals.data_type, shape)
+        return self._scatter(vals.reshape(-1))
+
+    def _scatter(self, vals: np.ndarray) -> np.ndarray:
         shape = tuple(int(d) for d in self.dims)
         if any(d < 0 for d in shape):
             raise ValueError(

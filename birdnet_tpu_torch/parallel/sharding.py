@@ -41,6 +41,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..onnx.proto import WireTensor, wire_bits, wire_from_bits, wire_tensor
 from ..types import ModelConfig
 
 
@@ -162,19 +163,32 @@ def _species_pad(
     pad = -n % model_size
     out = dict(params)
     for name, p in params.items():
-        if floats_only and not np.issubdtype(p.dtype, np.floating):
+        if floats_only and not _is_float(p):
             continue  # integer consts (axes/shapes/indices) must not pad
         if p.ndim == 2 and p.shape[0] == n:
-            out[name] = np.concatenate(
-                [p, np.zeros((pad, p.shape[1]), p.dtype)], axis=0
-            )
+            out[name] = _zero_pad(p, pad, 0)
         elif p.ndim == 2 and p.shape[1] == n:
-            out[name] = np.concatenate(
-                [p, np.zeros((p.shape[0], pad), p.dtype)], axis=1
-            )
+            out[name] = _zero_pad(p, pad, 1)
         elif p.ndim == 1 and p.shape[0] == n:
-            out[name] = np.concatenate([p, np.zeros((pad,), p.dtype)])
+            out[name] = _zero_pad(p, pad, 0)
     return out, n + pad
+
+
+def _is_float(p) -> bool:
+    """A float array, or a ``WireTensor`` (bfloat16, float8, or 4-bit: a
+    weight or its zero point, never an axis or a shape)."""
+    return isinstance(p, WireTensor) or np.issubdtype(p.dtype, np.floating)
+
+
+def _zero_pad(p, pad: int, axis: int):
+    """``p`` with ``pad`` zeros appended along ``axis``; a ``WireTensor``
+    pads its bits (zero bits are zero in every wire type)."""
+    if isinstance(p, WireTensor):
+        bits = _zero_pad(wire_bits(p), pad, axis)
+        return wire_from_bits(bits, p.data_type, bits.shape)
+    widths = [(0, 0)] * p.ndim
+    widths[axis] = (0, pad)
+    return np.pad(p, widths)
 
 
 # Ops that mix values ACROSS positions of an axis (normalizers, axis
@@ -268,7 +282,8 @@ def _cell_block(p, spec: tuple, m: int, model_size: int, model_axis: str):
         return p
     axis = spec.index(model_axis)
     w = p.shape[axis] // model_size
-    return p[m * w:(m + 1) * w] if axis == 0 else p[:, m * w:(m + 1) * w]
+    block = p[m * w:(m + 1) * w] if axis == 0 else p[:, m * w:(m + 1) * w]
+    return wire_tensor(block, p.data_type) if isinstance(p, WireTensor) else block
 
 
 def shard_params(params, config: ModelConfig, mesh: Mesh, model_axis: str = "model",
@@ -388,7 +403,7 @@ def _head_partition(imported, config: ModelConfig, mesh: Mesh,
     model_size = mesh.shape[model_axis]
     _, n_padded = _species_pad_model(imported, config, model_size)
     float_consts = {name: c for name, c in imported.consts.items()
-                    if np.issubdtype(c.dtype, np.floating)}
+                    if _is_float(c)}
     candidates = [name for tensors in (imported.params, float_consts)
                   for name, spec in param_specs(tensors, config, model_axis).items()
                   if spec]

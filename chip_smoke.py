@@ -87,6 +87,22 @@ exits non-zero:
              score within 1e-5, the same filtered predictions.
 9. checkpoint — full-width v2.4 saved to .btck on the card and built from
              it: fp32 logits bitwise equal to the ONNX-built classifier's.
+9b. dtypes  — full-width v2.4 (conv) re-stored in the three weight forms of
+             tests/_torch_dtype_forms.py (bfloat16-stored with Cast,
+             FLOAT8E4M3FN with DequantizeLinear per output channel, INT4 in
+             blocks of 32 with DequantizeLinear(block_size=32)), each beside
+             its yardstick file (the dequantized float32 weights, same
+             graph). Per form: fp32 on the card within DTYPES_TOL of the
+             yardstick's logit scale (TF32 off) and of the port on the host
+             (4 rows); fast top-1 equal where fp32's lead exceeds CLEAR_LEAD
+             and twice the yardstick's own fast-vs-fp32 drift, and on at
+             least MIN_TOP1_AGREE rows (the slice phase's v2.4 rule);
+             ten streamed minutes at fp32 against predict_batch (top-K
+             equal, confidences within STREAM_CONF_TOL); the batch context
+             bitwise against predict_batch at fast; a .btck round trip
+             bitwise; the kernels launched; predict_batch(32), batch context
+             and one streamed hour at tile 128 under fast, each in turns with
+             the yardstick. ml_dtypes must never have been imported.
 10. batch context — full-width v2.4 (conv) at fast: create_batch_context(32)
              captures its CUDA graph (B2 and B4 count their launches
              there); top-K and logits against predict_batch on a full
@@ -1625,15 +1641,16 @@ def phase_family_kernels(family: str, frontend: str, path: str, card: str) -> di
     return line
 
 
-def top1_where_clear(logits: np.ndarray, ref: np.ndarray) -> dict:
+def top1_where_clear(logits: np.ndarray, ref: np.ndarray,
+                     clear_lead: float = CLEAR_LEAD) -> dict:
     """Top-1 of ``logits`` against ``ref`` (fp32): the count over all rows,
-    and whether every row whose ref winner leads by more than CLEAR_LEAD of
-    ref's largest magnitude agrees; each disagreeing row's lead."""
+    and whether every row whose ref winner leads by more than ``clear_lead``
+    of ref's largest magnitude agrees; each disagreeing row's lead."""
     scale = np.abs(ref).max()
     top2 = np.sort(ref, axis=1)[:, -2:]
     lead = (top2[:, 1] - top2[:, 0]) / scale
     agree = logits.argmax(1) == ref.argmax(1)
-    clear = lead > CLEAR_LEAD
+    clear = lead > clear_lead
     return {"all": f"{int(agree.sum())}/{len(agree)}",
             "where_clear": f"{int(agree[clear].sum())}/{int(clear.sum())}",
             "leads_of_disagreeing_rows": [float(v) for v in lead[~agree]],
@@ -1810,6 +1827,127 @@ def phase_checkpoint(card: str, path: str, segs: np.ndarray) -> None:
     emit(line)
     if not line["ok"]:
         raise AssertionError(f"checkpoint: {line}")
+
+
+# The dtypes phase: the three weight forms of tests/_torch_dtype_forms.py at
+# full width, each held to its yardstick file (the same graph holding the
+# dequantized float32 weights) at fp32 on the card within this share of the
+# yardstick's logit scale, and to the port on the host (DTYPES_CPU_ROWS
+# rows) within it; ten streamed minutes at fp32 against predict_batch; the
+# rates of one streamed hour at tile DTYPES_TILE under fast.
+DTYPES_TOL = 1e-4
+DTYPES_CPU_ROWS = 4
+DTYPES_STREAM_SECONDS = 600
+DTYPES_TILE = 128
+
+
+def phase_dtypes(card: str, segs: np.ndarray) -> dict:
+    """BirdNET v2.4 at full width (conv) in the weight forms users ship:
+    bfloat16-stored, FP8 QDQ and int4 blocks, each against its yardstick
+    file on the card and against the port on the host; the stream, the
+    batch context and a .btck round trip; the rates beside the yardstick's.
+    Returns the phase's launch counts (the forms' own runs)."""
+    t_phase = time.perf_counter()
+    sys.path.insert(0, str(REPO / "tests"))
+    from _torch_dtype_forms import FORMS, form_bytes
+
+    model = birdnet_v24.build_model(seed=SEED, frontend="conv")
+    pcm = (np.random.default_rng(SEED + 30).standard_normal(HOUR, dtype=np.float32) * 3000
+           ).clip(-32768, 32767).astype(np.int16)
+    minutes = pcm[:DTYPES_STREAM_SECONDS * 48_000]
+    audio = chunk_audio(minutes.astype(np.float32) / 32768.0, S, 0.0, 48_000)[0]
+    failed, launches = [], {k: 0 for k in read_launches()}
+    with tempfile.TemporaryDirectory() as tmp:
+        for form in FORMS:
+            t_form = time.perf_counter()
+            path, yard_path = str(Path(tmp) / f"{form}.onnx"), str(Path(tmp) / f"{form}_yard.onnx")
+            stored, yard_bytes = form_bytes(model, form)
+            Path(path).write_bytes(stored)
+            Path(yard_path).write_bytes(yard_bytes)
+            # The form's run: every count starts at 0 here.
+            reset_launches()
+            fp32, fast = built(path, LABELS, "fp32"), built(path, LABELS, "fast")
+            ref = logits_of(fp32.predict_batch(segs))
+            fast_logits = logits_of(fast.predict_batch(segs))
+            ctx = fast.create_batch_context(N_SEG)
+            in_ctx = logits_of(fast.predict_batch_with_context(ctx, segs))
+            stream_fp32 = streamed(fp32, minutes, 0.0)
+            after = read_launches()
+            yard32, yard_fast = built(yard_path, LABELS, "fp32"), built(yard_path, LABELS, "fast")
+            yard_ref = logits_of(yard32.predict_batch(segs))
+            # A lead below twice the drift that fast shows on the same
+            # weights stored in float32 (the yardstick, on the main path)
+            # can flip there too: the top-1 rule reads rows that lead by
+            # more than that and by more than CLEAR_LEAD.
+            yard_drift = scaled_diff(logits_of(yard_fast.predict_batch(segs)), yard_ref)
+            clear_lead = max(CLEAR_LEAD, 2 * yard_drift)
+            host = (Classifier.builder().model_path(path).labels(LABELS).precision("fp32")
+                    .with_device("cpu").build())
+            host_logits = logits_of(host.predict_batch(segs[:DTYPES_CPU_ROWS]))
+            del host
+            with tempfile.TemporaryDirectory() as ck_dir:
+                ck = str(Path(ck_dir) / f"{form}.btck")
+                fp32.save_checkpoint(ck)
+                from_ck = logits_of(built(ck, LABELS, "fp32").predict_batch(segs))
+            stream_vs = stream_against_predict_batch(fp32, audio, stream_fp32)
+            yard_ctx = yard_fast.create_batch_context(N_SEG)
+            for clf in (fast, yard_fast):
+                clf._streaming_engine().tile = DTYPES_TILE
+                streamed(clf, minutes, 0.0)  # captures the key's graphs
+            # Each rate in turns with the yardstick's (form, yardstick,
+            # yardstick, form), medians.
+            pairs = {form: (fast, ctx), "yardstick": (yard_fast, yard_ctx)}
+            rates = {
+                "predict_batch32": in_turns(
+                    {k: lambda n, c=c: seg_per_s(c, segs, n) for k, (c, _) in pairs.items()}),
+                "context": in_turns(
+                    {k: lambda n, c=c, x=x: statistics.median(context_rates(c, x, segs, n))
+                     for k, (c, x) in pairs.items()}),
+                f"stream_hour_tile{DTYPES_TILE}": in_turns(
+                    {k: lambda n, c=c: stream_rate(c, pcm) for k, (c, _) in pairs.items()}),
+            }
+            line = {"phase": "dtypes", "form": form, "card": card,
+                    "initializer_types": sorted({
+                        P.WIRE_NAMES.get(t.data_type) or str(P._DTYPE_TO_NUMPY[t.data_type])
+                        for t in P.decode_model(stored).graph.initializer}),
+                    "ops": sorted({n.op_type for n in import_onnx(path).graph.node}),
+                    "fp32_scaled_diff_vs_yardstick": scaled_diff(ref, yard_ref),
+                    "fp32_scaled_diff_card_vs_cpu": scaled_diff(ref[:DTYPES_CPU_ROWS],
+                                                                host_logits),
+                    "scaled_logit_diff_fast_vs_fp32": scaled_diff(fast_logits, ref),
+                    "yardstick_scaled_logit_diff_fast_vs_fp32": yard_drift,
+                    "top1_fast_vs_fp32": top1_where_clear(fast_logits, ref, clear_lead),
+                    "top1_clear_lead": clear_lead,
+                    "stream_segments": int(stream_fp32[0].shape[0]),
+                    "stream_vs_predict_batch": stream_vs,
+                    "context_logits_bitwise_equal": bool(np.array_equal(in_ctx, fast_logits)),
+                    "btck_logits_bitwise_equal": bool(np.array_equal(from_ck, ref)),
+                    "launches": {k: n for k, n in after.items() if n},
+                    "seg_per_s": rates, "form_s": time.perf_counter() - t_form}
+            ok = (np.isfinite(ref).all() and ref.shape == (N_SEG, birdnet_v24.NUM_SPECIES)
+                  and line["fp32_scaled_diff_vs_yardstick"] <= DTYPES_TOL
+                  and line["fp32_scaled_diff_card_vs_cpu"] <= DTYPES_TOL
+                  and line["top1_fast_vs_fp32"]["ok"]
+                  and int((fast_logits.argmax(1) == ref.argmax(1)).sum()) >= MIN_TOP1_AGREE
+                  and line["stream_segments"] == audio.shape[0]
+                  and stream_vs["topk_equal"]
+                  and stream_vs["max_conf_diff"] <= STREAM_CONF_TOL
+                  and ctx.graph is not None
+                  and line["context_logits_bitwise_equal"]
+                  and line["btck_logits_bitwise_equal"])
+            line["ok"] = bool(ok)
+            emit(line)
+            if not ok:
+                failed.append(form)
+            launches = {k: launches[k] + after[k] for k in launches}
+            del fp32, fast, ctx, yard32, yard_fast, yard_ctx
+            torch.cuda.empty_cache()
+    mld = "ml_dtypes" in sys.modules and sys.modules["ml_dtypes"] is not None
+    emit({"phase": "dtypes_done", "card": card, "ml_dtypes_imported": mld,
+          "phase_s": time.perf_counter() - t_phase})
+    if failed or mld:
+        raise AssertionError(f"dtypes: forms {failed} disagree, ml_dtypes imported: {mld}")
+    return launches
 
 
 def device_kernel_names(fn) -> dict:
@@ -4263,6 +4401,7 @@ def main() -> int:
         path_launches.append(phase_families(smi))
         phase_rangefilter(smi)
         phase_checkpoint(smi, paths["conv"], segs)
+        path_launches.append(phase_dtypes(smi, segs))
         path_launches.append(phase_batch_context(smi, paths["conv"], segs))
         path_launches.append(phase_serve(smi, paths["conv"]))
         phase_cli(smi, paths["conv"])

@@ -380,7 +380,8 @@ def test_port_never_imports_jax():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'birdnet_tpu', 'triton'))\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'birdnet_tpu', 'triton',\n"
+        "                                    'ml_dtypes'))\n"
         "print('BAD', bad)\n"
         "print('INT8', all(m in sys.modules for m in (\n"
         "    'birdnet_tpu_torch.compiler.quantize', 'birdnet_tpu_torch.ops.cuda.qconv')))\n"
@@ -396,37 +397,92 @@ def test_port_never_imports_jax():
 
 
 def test_codec_without_ml_dtypes():
-    """With ml_dtypes blocked, the codec imports and decodes a float32
-    model; a bf16 tensor raises a ModelLoadError naming the package."""
+    """With ml_dtypes blocked, the codec imports, decodes a float32 model,
+    and decodes bfloat16, float8 and int4 tensors into the port's own
+    representation (a CPU ``WireTensor``) without importing it."""
     out = _run_isolated(
         "import sys\n"
         "sys.modules['ml_dtypes'] = None\n"
         "import numpy as np\n"
         "from birdnet_tpu_torch.compiler.importer import import_onnx\n"
-        "from birdnet_tpu_torch.errors import ModelLoadError\n"
         "from birdnet_tpu_torch.models import birdnet_v24\n"
         "from birdnet_tpu_torch.onnx import proto as P\n"
         "m = import_onnx(P.encode_model(birdnet_v24.build_model(\n"
         "    num_species=10, width=0.1, depth=1)))\n"
         "print('PARAMS', len(m.params))\n"
         "t = P.TensorProto(name='w', data_type=P.DataType.BFLOAT16, dims=[2],\n"
-        "                  raw_data=b'\\x00\\x00\\x80\\x3f')\n"
-        "try:\n"
-        "    t.to_numpy()\n"
-        "except ModelLoadError as e:\n"
-        "    print('ERR', e)\n"
+        "                  raw_data=b'\\x00\\x00\\x80\\x3f').to_numpy()\n"
+        "print('BF16', type(t).__name__, t.float().tolist())\n"
+        "t = P.TensorProto(name='w', data_type=P.DataType.FLOAT8E4M3FN, dims=[2],\n"
+        "                  int32_data=[0x38, 0xC0]).to_numpy()\n"
+        "print('FP8', t.float().tolist())\n"
+        "t = P.TensorProto(name='w', data_type=P.DataType.INT4, dims=[3],\n"
+        "                  raw_data=b'\\x8f\\x07').to_numpy()\n"
+        "print('INT4', type(t).__name__, t.tolist())\n"
+        "print('MLD', 'ml_dtypes' in sys.modules and sys.modules['ml_dtypes'] is not None)\n"
     )
     assert "PARAMS" in out and int(out.split("PARAMS")[1].split()[0]) > 0
-    assert "ERR" in out and "ml_dtypes" in out
+    assert "BF16 WireTensor [0.0, 1.0]" in out
+    assert "FP8 [1.0, -2.0]" in out
+    assert "INT4 Int4Tensor [-1, -8, 7]" in out
+    assert "MLD False" in out
 
 
 def test_bf16_wire_tensor_with_ml_dtypes():
-    """Where ml_dtypes is present the codec behaves as the JAX package's."""
+    """Where ml_dtypes is present the port still decodes into its own
+    representation; the values and the type's name are the JAX codec's."""
     raw = np.array([1.0, -2.5], np.float32).view(np.uint32) >> 16
     raw = raw.astype(np.uint16).tobytes()
     t = t_proto.TensorProto(name="w", data_type=t_proto.DataType.BFLOAT16,
-                            dims=[2], raw_data=raw)
+                            dims=[2], raw_data=raw).to_numpy()
     j = j_proto.TensorProto(name="w", data_type=j_proto.DataType.BFLOAT16,
-                            dims=[2], raw_data=raw)
-    assert t.to_numpy().dtype == j.to_numpy().dtype
-    np.testing.assert_array_equal(t.to_numpy(), j.to_numpy())
+                            dims=[2], raw_data=raw).to_numpy()
+    assert isinstance(t, t_proto.WireTensor)
+    assert t_proto.WIRE_NAMES[t.data_type] == j.dtype.name
+    np.testing.assert_array_equal(t.float().numpy(), j.astype(np.float32))
+
+
+# The port's onnx/proto.py is the JAX codec with its modern-dtype section
+# rewritten: bfloat16, float8 and int4/uint4 decode into the port's own
+# WireTensor (a CPU torch tensor; Int4Tensor for the 4-bit types) instead
+# of ml_dtypes arrays, and encode back from it. The comparison drops, from
+# both files, the dtype tables between DataType and _DATA_LOCATION_EXTERNAL
+# and the TensorProto / SparseTensorProto methods that read or write
+# tensor payloads.
+_PROTO_PAYLOAD_METHODS = {
+    "TensorProto": {"to_numpy", "_to_wire", "_unpack_int4", "from_numpy",
+                    "_from_wire"},
+    "SparseTensorProto": {"to_dense", "_scatter"},
+}
+
+
+def _proto_without_dtype_section(path: Path) -> str:
+    tree = ast.parse(path.read_text())
+    body, skipping = [], False
+    for node in tree.body:
+        if isinstance(node, ast.ClassDef) and node.name == "DataType":
+            body.append(node)
+            skipping = True
+            continue
+        if skipping:
+            names = [t.id for t in getattr(node, "targets", []) if isinstance(t, ast.Name)]
+            if names == ["_DATA_LOCATION_EXTERNAL"]:
+                skipping = False
+            else:
+                continue
+        if isinstance(node, ast.ClassDef) and node.name in _PROTO_PAYLOAD_METHODS:
+            drop = _PROTO_PAYLOAD_METHODS[node.name]
+            node.body = [n for n in node.body
+                         if not (isinstance(n, ast.FunctionDef) and n.name in drop)]
+        body.append(node)
+    tree.body = body
+    return ast.dump(tree)
+
+
+def test_proto_copy_differs_only_in_modern_dtypes():
+    src = _proto_without_dtype_section(REPO / "birdnet_tpu" / "onnx" / "proto.py")
+    dst = _proto_without_dtype_section(REPO / "birdnet_tpu_torch" / "onnx" / "proto.py")
+    assert dst == src, (
+        "birdnet_tpu_torch/onnx/proto.py drifted outside its modern-dtype "
+        "section and its tensor payload methods"
+    )

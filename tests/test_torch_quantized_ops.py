@@ -28,8 +28,9 @@ FLOAT8_TORCH = (torch.float8_e4m3fn, torch.float8_e4m3fnuz, torch.float8_e5m2,
 
 def _run_both(nodes, inputs, initializers=None, outputs=("y",), opset=17):
     """(port outputs, JAX outputs), each a list of numpy arrays."""
-    init = [P.TensorProto.from_numpy(np.asarray(v), name=k)
-            for k, v in (initializers or {}).items()]
+    init = [P.TensorProto.from_numpy(
+        v if isinstance(v, torch.Tensor) else np.asarray(v), name=k)
+        for k, v in (initializers or {}).items()]
     in_vis = [P.make_value_info(k, P._NUMPY_TO_DTYPE[np.asarray(v).dtype],
                                 list(np.asarray(v).shape))
               for k, v in inputs.items()]
@@ -378,14 +379,14 @@ def test_quantize_linear_float8_matches_jax_bit_for_bit(target, saturate, form):
     names = ["x", "s"]
     attrs = {"saturate": saturate}
     if form == "zero_point":
-        inits["zp"] = np.zeros((), P._DTYPE_TO_NUMPY[code])
+        inits["zp"] = torch.zeros((), dtype=FLOAT8_TORCH[FLOAT8.index(target)])
         names.append("zp")
     else:
         attrs["output_dtype"] = code
     got, want = _run_both([P.make_node("QuantizeLinear", names, ["y"], **attrs)],
                           {"x": _float8_inputs(17)}, inits,
                           opset=19 if form == "zero_point" else 21)
-    assert want[0].dtype == P._DTYPE_TO_NUMPY[code]
+    assert want[0].dtype.name == P.WIRE_NAMES[code]
     np.testing.assert_array_equal(got[0], want[0].view(np.uint8))
 
 
