@@ -31,7 +31,10 @@ CPU torch tensor) instead of ml_dtypes arrays, so the package never
 imports ``ml_dtypes``, and the docstring of ``models/_builder`` names the
 upstream blob list by file name rather than by an absolute path.
 ``compiler/quantize`` is a copy whose calibration (``_collect_absmax``)
-runs on the port's interpreter on an explicit device; ``utils/audio_io`` a
+runs on the port's interpreter on an explicit device, and whose layer
+picker ``compiler/__init__`` wraps so that it reads bfloat16, float8 and
+4-bit weights as the JAX package's picker reads ml_dtypes arrays
+(``compiler/quantize_wire``); ``utils/audio_io`` a
 copy whose native decoder builds into a file of its own and renames it
 into place; ``utils/activation_diff`` a copy whose
 ``capture_activations`` runs the port's interpreter on an explicit

@@ -220,7 +220,7 @@ class _CapturedBatch:
     captured once into a CUDA graph over static device buffers."""
 
     def __init__(self, engine, shape, with_embeddings: bool):
-        from .ops.cuda.build import collector_paused, holding
+        from .ops.cuda.build import collector_paused, holding, one_capture_at_a_time
         from .ops.topk import fused_sigmoid_topk
 
         self._engine = engine
@@ -246,18 +246,22 @@ class _CapturedBatch:
             return conf, idx, logits, (outs[embed] if embed is not None else None)
 
         try:
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side), torch.inference_mode():
-                for _ in range(_WARMUP_CALLS):
-                    step()
-            torch.cuda.current_stream(device).wait_stream(side)
-            torch.cuda.synchronize(device)
-            self.graph = torch.cuda.CUDAGraph()
-            # The graph keeps the cached operands it reads (``build.hold``).
-            with holding() as self._held, collector_paused(), \
-                    torch.cuda.graph(self.graph), torch.inference_mode():
-                self.outs = step()
+            with one_capture_at_a_time():
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side), torch.inference_mode():
+                    for _ in range(_WARMUP_CALLS):
+                        step()
+                torch.cuda.current_stream(device).wait_stream(side)
+                torch.cuda.synchronize(device)
+                self.graph = torch.cuda.CUDAGraph()
+                # The graph keeps the cached operands it reads
+                # (``build.hold``). Thread-local: other threads' calls go on.
+                with holding() as self._held, collector_paused(), \
+                        torch.cuda.graph(self.graph, stream=side,
+                                         capture_error_mode="thread_local"), \
+                        torch.inference_mode():
+                    self.outs = step()
         except Exception as e:  # noqa: BLE001 - capture refused (a host sync,
             # an unsupported call): the context cannot exist on the card
             raise InferenceError(f"CUDA graph capture of the batch forward failed: {e}") from e

@@ -383,21 +383,24 @@ class StreamingEngine:
         if program is not None:
             self._programs.move_to_end(key)
             return program
+        from ..ops.cuda.build import one_capture_at_a_time
+
         nbytes = self.tile * self.config.sample_count * _MAX_ITEMSIZE
         grow = self._ring is None or self._ring.nbytes < nbytes
-        if grow or len(self._programs) >= MAX_PROGRAMS:
-            # What is freed may still be read by an abandoned call's work.
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            if grow:
-                # Every graph reads the old ring's device buffers.
-                self._programs.clear()
-                self._ring = None
-                self._ring = _Ring(nbytes, self.device)
-            while len(self._programs) >= MAX_PROGRAMS:
-                self._programs.popitem(last=False)
-        program = self._programs[key] = _TileProgram(
-            self, self.tile, step, dtype, with_embeddings, with_mask)
+        with one_capture_at_a_time():
+            if grow or len(self._programs) >= MAX_PROGRAMS:
+                # What is freed may still be read by an abandoned call's work.
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                if grow:
+                    # Every graph reads the old ring's device buffers.
+                    self._programs.clear()
+                    self._ring = None
+                    self._ring = _Ring(nbytes, self.device)
+                while len(self._programs) >= MAX_PROGRAMS:
+                    self._programs.popitem(last=False)
+            program = self._programs[key] = _TileProgram(
+                self, self.tile, step, dtype, with_embeddings, with_mask)
         return program
 
     @property

@@ -104,6 +104,23 @@ def holding():
         _holds.current = outer
 
 
+_capture_lock = threading.RLock()
+
+
+@contextlib.contextmanager
+def one_capture_at_a_time():
+    """Hold the process's capture lock inside the block: a CUDA graph is
+    captured there, with its warm-up calls and the device-wide synchronize
+    before it (``torch.cuda.graph`` adds one of its own and empties the
+    allocator's cache as it begins). Each capture runs in CUDA's
+    thread-local mode, so that other threads' event waits, blocking copies
+    and replays go on beside it; the lock keeps two captures, and a
+    capture and another thread's device-wide synchronize made under it,
+    from overlapping. Re-entrant."""
+    with _capture_lock:
+        yield
+
+
 _collector_lock = threading.Lock()
 _collector_pauses = 0
 _collector_was_on = False

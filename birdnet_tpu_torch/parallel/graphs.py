@@ -176,13 +176,17 @@ class _MeshStep:
 def _prepare(steps) -> None:
     """Warm the first of ``steps`` (steps of one key over different
     buffers), then capture each, unless the warm calls read the card on the
-    host: the key then runs eagerly."""
+    host: the key then runs eagerly. One capture at a time in the process
+    (``build.one_capture_at_a_time``)."""
+    from ..ops.cuda.build import one_capture_at_a_time
+
     try:
-        steps[0].warm()
-        for step in steps:
-            step.host_reads = steps[0].host_reads
-            if not step.host_reads:
-                step.capture()
+        with one_capture_at_a_time():
+            steps[0].warm()
+            for step in steps:
+                step.host_reads = steps[0].host_reads
+                if not step.host_reads:
+                    step.capture()
     except InferenceError:
         raise
     except Exception as e:  # noqa: BLE001 - capture refused (a host sync,

@@ -13,11 +13,21 @@ and puts the node that widens them back to float32 before their consumer:
 - ``int4_block`` (weight-only int4, opset 21): the weights of the 1x1
   convs and of the classifier head are stored as INT4 in blocks of 32
   along the input channels (scale amax / 7 per block), with an INT4 zero
-  point of 0, and go through ``DequantizeLinear(block_size=32)``.
+  point of 0, and go through ``DequantizeLinear(block_size=32)``;
+- ``bf16_direct`` (layers that compute in bfloat16): the squeeze-excite
+  convs of the last two MBConv blocks (the last ``DIRECT_LAYERS`` 1x1
+  convs with a bias) read their input through ``Cast(to=BFLOAT16)``,
+  their BFLOAT16 weight and bias directly, and give their output back
+  through ``Cast(to=FLOAT)``. These layers are interior (they neither read
+  the graph input nor give a graph output), so the int8 quantizer could
+  pick them; both packages leave them float.
 
 For each form, :func:`build_form` also gives the *yardstick*: the same
 graph holding the dequantized float32 weights, computed from the same
-arrays as ``DequantizeLinear`` computes them, with no widening node. The
+arrays as ``DequantizeLinear`` computes them, with no widening node (for
+``bf16_direct``: the bfloat16 weights and biases as float32, with no
+Cast; its activations still round to bfloat16 in those layers, so it is
+not within the other forms' distance of its yardstick). The
 port's codec (``birdnet_tpu_torch.onnx.proto``) writes every file; the
 quantized values come from torch's own casts, so neither ml_dtypes nor
 JAX is needed (the card's machine has neither).
@@ -32,8 +42,9 @@ import torch
 
 from birdnet_tpu_torch.onnx import proto as P
 
-FORMS = ("bf16_store", "fp8_qdq", "int4_block")
-OPSET = {"bf16_store": 17, "fp8_qdq": 19, "int4_block": 21}
+FORMS = ("bf16_store", "fp8_qdq", "int4_block", "bf16_direct")
+OPSET = {"bf16_store": 17, "fp8_qdq": 19, "int4_block": 21, "bf16_direct": 17}
+DIRECT_LAYERS = 4
 BLOCK = 32
 FP8_MAX = 448.0  # the largest finite FLOAT8E4M3FN
 INT4_MAX = 7.0
@@ -108,6 +119,31 @@ def _is_1x1(node, w: np.ndarray) -> bool:
             and int(node.attrs.get("group", 1)) == 1)
 
 
+def _direct_convs(graph, n_layers: int = DIRECT_LAYERS):
+    """The last ``n_layers`` 1x1 convs (group 1) whose weight and bias are
+    both initializers."""
+    inits = {t.name: t for t in graph.initializer}
+    picked = [n for n in graph.node
+              if n.op_type == "Conv" and len(n.input) > 2
+              and n.input[1] in inits and n.input[2] in inits
+              and list(inits[n.input[1]].dims[2:]) == [1, 1]
+              and int(n.attrs.get("group", 1)) == 1]
+    return picked[-n_layers:]
+
+
+def _compute_in_bf16(graph, node) -> None:
+    """``node`` reads its input through ``Cast(to=BFLOAT16)`` and gives its
+    output through ``Cast(to=FLOAT)``."""
+    x, y = node.input[0], node.output[0]
+    i = graph.node.index(node)
+    graph.node.insert(i, P.make_node("Cast", [x], [f"{x}__to_bf16_{node.name}"],
+                                     to=P.DataType.BFLOAT16))
+    graph.node.insert(i + 2, P.make_node("Cast", [f"{y}__bf16"], [y],
+                                         to=P.DataType.FLOAT))
+    node.input[0] = f"{x}__to_bf16_{node.name}"
+    node.output[0] = f"{y}__bf16"
+
+
 def _widen(graph, name: str, node) -> None:
     """Put ``node`` (whose output is ``name``) before ``name``'s first
     consumer."""
@@ -129,11 +165,21 @@ def build_form(model: P.ModelProto, form: str):
     inits = {t.name: t for t in graph.initializer}
     weights = _weight_nodes(graph)
     new_inits, yard_values = [], {}
+    direct = {}
+    if form == "bf16_direct":
+        for node in _direct_convs(graph):
+            _compute_in_bf16(graph, node)
+            direct.update({node.input[1]: node, node.input[2]: node})
     for t in list(graph.initializer):
         w = t.to_numpy()
         if not (isinstance(w, np.ndarray) and w.dtype == np.float32):
             continue
-        if form == "bf16_store" and w.ndim >= 2:
+        if form == "bf16_direct" and t.name in direct:
+            q, deq = _bf16(w)
+            new_inits.append(P.TensorProto.from_numpy(q, f"{t.name}__bf16"))
+            node = direct[t.name]
+            node.input[:] = [f"{t.name}__bf16" if i == t.name else i for i in node.input]
+        elif form == "bf16_store" and w.ndim >= 2:
             q, deq = _bf16(w)
             new_inits.append(P.TensorProto.from_numpy(q, f"{t.name}__bf16"))
             _widen(graph, t.name, P.make_node(

@@ -186,6 +186,160 @@ _case("Multinomial", [P.make_node("Multinomial", ["x"], ["y"], sample_size=8, se
 
 
 # ---------------------------------------------------------------------------
+# tests/test_compiler_conformance.py's ops at a BirdNET user's shapes
+# ---------------------------------------------------------------------------
+
+FMAP = (BATCH, 64, 96, 256)  # an early feature map of the backbone
+I64 = np.int64
+
+
+def _ties(shape, seed):
+    """Values on a half-step grid, so that maxima and minima tie."""
+    return np.round(_n(shape, seed) * 2) / 2
+
+
+def _ints(shape, seed, lo, hi, dtype=np.int32):
+    return np.random.default_rng(seed).integers(lo, hi, size=shape).astype(dtype)
+
+
+def _nonzero_ints(shape, seed):
+    v = _ints(shape, seed, -40, 40)
+    return np.where(v == 0, 7, v).astype(np.int32)
+
+
+_case("Mod_fmod", [P.make_node("Mod", ["a", "b"], ["y"], fmod=1)],
+      lambda: {"a": _n((BATCH, SPECIES), 30, 50.0), "b": _u((SPECIES,), 31, 0.5, 7.0)},
+      opset=13)
+_case("Mod_integer", [P.make_node("Mod", ["a", "b"], ["y"])],
+      lambda: {"a": _ints((BATCH, SPECIES), 32, -1000, 1000),
+               "b": _nonzero_ints((SPECIES,), 33)}, opset=13)
+_case("Reduce_noop_and_full", [
+    P.make_node("ReduceSum", ["x"], ["y"], noop_with_empty_axes=1),
+    P.make_node("ReduceMean", ["x"], ["z"])],
+    lambda: {"x": _n(HEAD_MAP, 34)}, outputs=("y", "z"), opset=18)
+_case("ArgMax_ArgMin_select_last_index", [
+    P.make_node("ArgMax", ["x"], ["y"], axis=1, keepdims=0, select_last_index=1),
+    P.make_node("ArgMin", ["x"], ["z"], axis=-1, keepdims=1, select_last_index=1)],
+    lambda: {"x": _ties((BATCH, SPECIES), 35)}, outputs=("y", "z"), opset=13)
+# Range on host values (a float step that does not divide, and integers),
+# added to a row on the card.
+_case("Range_float_and_int", [
+    P.make_node("Range", ["s", "l", "d"], ["r"]),
+    P.make_node("Add", ["x", "r"], ["y"]),
+    P.make_node("Range", ["si", "li", "di"], ["ri"]),
+    P.make_node("Cast", ["ri"], ["rf"], to=F.FLOAT),
+    P.make_node("Add", ["x", "rf"], ["z"])],
+    lambda: {"x": _n((BATCH, 1), 36)},
+    lambda: {"s": np.float32(0.25), "l": np.float32(2413.3), "d": np.float32(0.37),
+             "si": I64(-3000), "li": I64(3522), "di": I64(1)},
+    outputs=("y", "z"), opset=11)
+_case("Slice_negative_steps", [
+    P.make_node("Slice", ["x", "s1", "e1", "a", "t1"], ["y"]),
+    P.make_node("Slice", ["x", "s2", "e2", "a", "t2"], ["z"])],
+    lambda: {"x": _n((BATCH, 96, 511), 37)},
+    lambda: {"s1": np.array([-1], I64), "e1": np.array([-10 ** 9], I64),
+             "t1": np.array([-1], I64), "a": np.array([2], I64),
+             "s2": np.array([10 ** 6], I64), "e2": np.array([0], I64),
+             "t2": np.array([-3], I64)},
+    outputs=("y", "z"), opset=13)
+# Resize's coordinate modes on the spectrogram image, the opset-10 form
+# (scales only) and the opset-18 ``axes`` attribute.
+_RESIZE_MODES = {
+    "nearest_asymmetric": (dict(mode="nearest", coordinate_transformation_mode="asymmetric",
+                                nearest_mode="floor"), [1.0, 1.0, 2.0, 2.0]),
+    "linear_align_corners": (dict(mode="linear",
+                                  coordinate_transformation_mode="align_corners"),
+                             [1.0, 1.0, 0.5, 0.5]),
+    "linear_pytorch_half_pixel": (dict(mode="linear",
+                                       coordinate_transformation_mode="pytorch_half_pixel"),
+                                  [1.0, 1.0, 1.5, 0.25]),
+    "linear_half_pixel": (dict(mode="linear"), [1.0, 1.0, 2.0, 0.5]),
+    "nearest_half_pixel_prefer_floor": (dict(mode="nearest",
+                                             coordinate_transformation_mode="half_pixel",
+                                             nearest_mode="round_prefer_floor"),
+                                        [1.0, 1.0, 1.5, 1.5]),
+}
+_case("Resize_coordinate_modes", [
+    P.make_node("Resize", ["x", "", f"sc_{m}"], [f"y_{m}"], **attrs)
+    for m, (attrs, _) in _RESIZE_MODES.items()],
+    lambda: {"x": _n(IMG, 38)},
+    lambda: {f"sc_{m}": np.array(sc, np.float32) for m, (_, sc) in _RESIZE_MODES.items()},
+    outputs=tuple(f"y_{m}" for m in _RESIZE_MODES), opset=13)
+_case("Resize_opset10", [P.make_node("Resize", ["x", "sc"], ["y"], mode="linear")],
+      lambda: {"x": _n(IMG, 39)}, lambda: {"sc": np.array([1.0, 1.0, 2.0, 0.5], np.float32)},
+      opset=10)
+_case("Resize_axes", [P.make_node("Resize", ["x", "", "", "sz"], ["y"], mode="linear",
+                                  axes=[2, 3])],
+      lambda: {"x": _n(IMG, 40)}, lambda: {"sz": np.array([128, 256], I64)}, opset=18)
+# MaxPool's indices (row- and column-major storage, padded and dilated, 1-D,
+# one column wide) and MaxUnpool back through them.
+_case("MaxPool_indices_storage_orders", [
+    P.make_node("MaxPool", ["x"], ["y", "i"], kernel_shape=[3, 3], strides=[2, 2],
+                pads=[1, 1, 1, 1]),
+    P.make_node("MaxPool", ["x"], ["y2", "i2"], kernel_shape=[3, 3], strides=[2, 2],
+                pads=[1, 1, 1, 1], storage_order=1)],
+    lambda: {"x": _ties(FMAP, 41)}, outputs=("y", "i", "y2", "i2"), opset=12)
+_case("MaxPool_indices_padded_dilated", [
+    P.make_node("MaxPool", ["x"], ["y", "i"], kernel_shape=[3, 3], strides=[1, 2],
+                pads=[2, 2, 2, 2], dilations=[2, 2])],
+    lambda: {"x": _n(FMAP, 42)}, outputs=("y", "i"), opset=12)
+_case("MaxPool_indices_1d", [
+    P.make_node("MaxPool", ["x"], ["y", "i"], kernel_shape=[3], strides=[2])],
+    lambda: {"x": _n((BATCH, 96, 511), 43)}, outputs=("y", "i"), opset=12)
+_case("MaxPool_indices_width_one", [
+    P.make_node("MaxPool", ["x"], ["y", "i"], kernel_shape=[2, 1], strides=[2, 1]),
+    P.make_node("MaxPool", ["x"], ["y2", "i2"], kernel_shape=[2, 1], strides=[2, 1],
+                storage_order=1)],
+    lambda: {"x": _n((BATCH, 64, 96, 1), 44)}, outputs=("y", "i", "y2", "i2"), opset=12)
+_case("MaxUnpool_roundtrip", [
+    P.make_node("MaxPool", ["x"], ["p", "i"], kernel_shape=[2, 2], strides=[2, 2]),
+    P.make_node("MaxUnpool", ["p", "i"], ["y"], kernel_shape=[2, 2], strides=[2, 2])],
+    lambda: {"x": _n(FMAP, 45)}, opset=12)
+_case("ScatterElements_min_max", [
+    P.make_node("ScatterElements", ["x", "idx", "u"], ["y"], axis=1, reduction="min"),
+    P.make_node("ScatterElements", ["x", "idx", "u"], ["z"], axis=1, reduction="max")],
+    lambda: {"x": _n((BATCH, SPECIES), 46), "idx": _ints((BATCH, 2048), 47, 0, SPECIES, I64),
+             "u": _n((BATCH, 2048), 48, 3.0)}, outputs=("y", "z"), opset=18)
+_case("ConvTranspose_grouped", [
+    P.make_node("ConvTranspose", ["x", "w", "b"], ["y"], group=4, strides=[2, 2],
+                pads=[1, 1, 1, 1], output_padding=[1, 1])],
+    lambda: {"x": _n((BATCH, 64, 24, 64), 49)},
+    lambda: {"w": _n((64, 16, 3, 3), 50, 0.1), "b": _n((64,), 51)}, opset=17)
+_case("GatherND_batch_dims", [
+    P.make_node("GatherND", ["x", "i1"], ["y"], batch_dims=1),
+    P.make_node("GatherND", ["x", "i2"], ["z"], batch_dims=1)],
+    lambda: {"x": _n((BATCH, 96, 511), 52), "i1": _ints((BATCH, 200, 1), 53, 0, 96, I64),
+             "i2": np.concatenate([_ints((BATCH, 300, 1), 54, 0, 96, I64),
+                                   _ints((BATCH, 300, 1), 55, 0, 511, I64)], axis=-1)},
+    outputs=("y", "z"), opset=13)
+_case("Pad_negative_crop", [
+    P.make_node("Pad", ["x", "p"], ["y"]),
+    P.make_node("Pad", ["x", "q"], ["z"], mode="constant")],
+    lambda: {"x": _n(IMG, 56)},
+    lambda: {"p": np.array([0, 0, -5, -11, 0, 0, -3, -7], I64),
+             "q": np.array([0, 0, 2, -11, 0, 0, -3, 4], I64)}, outputs=("y", "z"), opset=13)
+_case("LayerNormalization_skipped_output", [
+    P.make_node("LayerNormalization", ["x", "s", "b"], ["y", "", "inv"], axis=-1)],
+    lambda: {"x": _n((BATCH, 64, 1280), 57)},
+    lambda: {"s": _u((1280,), 58, 0.5, 1.5), "b": _n((1280,), 59)},
+    outputs=("y", "inv"), opset=17)
+_case("Conv_BatchNormalization_folded", [
+    P.make_node("Conv", ["x", "w", "cb"], ["c"], pads=[1, 1, 1, 1]),
+    P.make_node("BatchNormalization", ["c", "scale", "bias", "mean", "var"], ["y"])],
+    lambda: {"x": _n((BATCH, 32, 96, 128), 60)},
+    lambda: {"w": _n((64, 32, 3, 3), 61, 0.1), "cb": _n((64,), 62),
+             "scale": _u((64,), 63, 0.5, 1.5), "bias": _n((64,), 64),
+             "mean": _n((64,), 65), "var": _u((64,), 66, 0.5, 2.0)}, opset=17)
+
+# Batch-separable cases whose host reference may run on the first rows only
+# (the card runs all 32): the host's CPU takes seconds for each.
+HOST_SLICED = ("GridSample_bilinear", "GridSample_bicubic", "AffineGrid_GridSample",
+               "DeformConv", "MaxPool_indices_storage_orders",
+               "MaxPool_indices_padded_dilated", "MaxUnpool_roundtrip", "ConvTranspose_grouped",
+               "Conv_BatchNormalization_folded")
+
+
+# ---------------------------------------------------------------------------
 # ai.onnx.ml heads on embeddings
 # ---------------------------------------------------------------------------
 

@@ -15,6 +15,7 @@ import birdnet_tpu as jbt  # noqa: E402
 import birdnet_tpu_torch as tbt  # noqa: E402
 from birdnet_tpu_torch.batch_context import BatchInferenceContext  # noqa: E402
 from birdnet_tpu_torch.models import birdnet_v24, birdnet_v30, perch_v2  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 MODELS = {
     "v24": (birdnet_v24, dict(num_species=10), 144_000),

@@ -123,3 +123,26 @@ def test_every_capture_runs_with_the_collector_paused(path):
     """Each ``torch.cuda.graph`` capture in the port, its scripts and
     chip_smoke.py sits inside ``collector_paused()``."""
     assert _unpaused_captures(ast.parse(path.read_text())) == []
+
+
+def _global_captures(tree: ast.AST) -> list:
+    """Line numbers of ``torch.cuda.graph(...)`` calls without
+    ``capture_error_mode="thread_local"``."""
+    return [node.lineno for node in ast.walk(tree)
+            if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+            and node.func.attr == "graph"
+            and not any(k.arg == "capture_error_mode" and isinstance(k.value, ast.Constant)
+                        and k.value.value == "thread_local" for k in node.keywords)]
+
+
+@pytest.mark.parametrize("path", [p for p in _capture_files()
+                                  if p.is_relative_to(REPO / "birdnet_tpu_torch")],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_every_capture_in_the_port_is_thread_local(path):
+    """A capture in CUDA's global mode refuses every other thread's event
+    waits and blocking copies, and they invalidate it: the port's captures
+    (stream keys, batch context, mesh steps) run in thread-local mode, so
+    that concurrent callers of one classifier go on beside them
+    (tests/test_torch_cuda.py::test_batch_context_capture_beside_streaming_threads
+    on the card)."""
+    assert _global_captures(ast.parse(path.read_text())) == []

@@ -21,6 +21,7 @@ from birdnet_tpu_torch.compiler.importer import import_onnx  # noqa: E402
 from birdnet_tpu_torch.errors import ModelLoadError  # noqa: E402
 from birdnet_tpu_torch.models import birdnet_v24, birdnet_v30, perch_v2  # noqa: E402
 from birdnet_tpu_torch.testutil import mock_labels, sine_segment  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 MODELS = {
     "v24-conv": (birdnet_v24, dict(num_species=10)),

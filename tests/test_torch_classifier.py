@@ -17,6 +17,7 @@ from birdnet_tpu.ops.topk import fused_sigmoid_topk as j_topk  # noqa: E402
 from birdnet_tpu_torch.compiler import importer as timp  # noqa: E402
 from birdnet_tpu_torch.models import birdnet_v24  # noqa: E402
 from birdnet_tpu_torch.ops.topk import fused_sigmoid_topk as t_topk  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 LABELS = [f"Genus{i}_Species {i}" for i in range(10)]
 

@@ -32,6 +32,7 @@ from _torch_dual import dual, jax_cases, run_case, run_jax, run_port  # noqa: E4
 
 from birdnet_tpu.onnx import proto as P  # noqa: E402
 from birdnet_tpu_torch.errors import ModelLoadError  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 MS = "com.microsoft"
 JAX_ERRORS = {

@@ -23,6 +23,7 @@ from _torch_dual import dual_run_graph, graph_model, run_jax, run_port, \
 
 from birdnet_tpu.onnx import proto as P  # noqa: E402
 from birdnet_tpu_torch.compiler import ops as tops  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 DYNAMIC = [
     "test_if_dynamic_condition", "test_loop_dynamic_trip_count",

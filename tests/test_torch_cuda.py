@@ -24,6 +24,7 @@ from _torch_flow_cases import WHILE, WHILE_STEPS, merged_decoder_bytes  # noqa: 
 from _torch_flow_cases import model_bytes as flow_model_bytes  # noqa: E402
 from _torch_opset_cases import CASES as OPSET_CASES  # noqa: E402
 from _torch_opset_cases import HEADS as ML_HEADS  # noqa: E402
+from _torch_opset_cases import HOST_SLICED as OPSET_HOST_SLICED  # noqa: E402
 from _torch_opset_cases import RANDOM as OPSET_RANDOM  # noqa: E402
 from _torch_opset_cases import TOL as OPSET_TOL  # noqa: E402
 from _torch_opset_cases import inputs_of as opset_inputs  # noqa: E402
@@ -806,9 +807,8 @@ def test_batch_context_keeps_its_subgraph_constants(dev, tmp_path):
 # The long tail of ai.onnx and the ai.onnx.ml heads (tests/_torch_opset_cases.py,
 # chip_smoke.py's op_sets phase): each graph on the card against the host,
 # fp32 with TF32 off, within 1e-5 of each output's scale, the random ops bit
-# for bit; the heavy batch-separable graphs on the host's first 4 rows.
-OPSET_HOST_SLICED = ("GridSample_bilinear", "GridSample_bicubic", "AffineGrid_GridSample",
-                     "DeformConv")
+# for bit; the heavy batch-separable graphs (HOST_SLICED) on the host's
+# first 4 rows.
 
 
 def _forward_on(data, device):
@@ -1451,3 +1451,75 @@ def test_capture_survives_a_dead_graph_in_reach_of_the_collector(dev, tmp_path,
         for r, q in zip(clf.predict_batch_with_context(ctx, segs), clf.predict_batch(segs)):
             np.testing.assert_array_equal(r.raw_scores, q.raw_scores)
     gc.collect()
+
+
+@pytest.mark.parametrize("new_keys", [False, True], ids=["replaying", "capturing"])
+def test_batch_context_capture_beside_streaming_threads(dev, tmp_path, new_keys):
+    """Three threads stream on one classifier while a fourth makes its
+    first batch context (a CUDA graph capture) and calls it and
+    predict_batch: no call raises, and every answer equals the serial one
+    bit for bit (chip_smoke.py's concurrency phase at a small width). With
+    ``new_keys`` each stream thread's first call captures a streaming key of
+    its own, so that the captures overlap; else the fourth captures once
+    every stream has answered, so that its capture meets running streams.
+    A context that captured in CUDA's global mode refused the other
+    threads' event waits and blocking copies (and was invalidated by
+    them)."""
+    import threading
+
+    clf = _small_classifier(tmp_path, "v24", "conv")
+    clf._streaming_engine().tile = 4
+    pcm = _recording(40, 48_000, "int16")
+    recs = [pcm[k * 48_000:] for k in range(3)]
+    overlaps = [0.5, 1.0, 1.5] if new_keys else [0.0] * 3
+    segs = _segments(8, "cpu", torch.float32).numpy()
+    arrays = lambda out: [(t, [p.index for p in ps], [p.confidence for p in ps]) for t, ps in out]
+    serial_logits = np.stack([r.raw_scores for r in clf.predict_batch(segs)])
+    if not new_keys:
+        serial = [arrays(clf.analyze_samples(r)) for r in recs]
+    errors, streams, answers = [], [[] for _ in recs], []
+    start, done = threading.Barrier(len(recs) + 1), threading.Event()
+    answered = threading.Barrier(len(recs) + 1)
+
+    def streamer(k):
+        try:
+            start.wait()
+            while len(streams[k]) < 3 or not done.is_set():
+                streams[k].append(arrays(clf.analyze_samples(recs[k],
+                                                             overlap_seconds=overlaps[k])))
+                if len(streams[k]) == 1 and not new_keys:
+                    answered.wait(60)
+        except Exception as e:  # noqa: BLE001 - asserted below
+            answered.abort()
+            errors.append(e)
+
+    def fourth():
+        try:
+            start.wait()
+            if not new_keys:
+                answered.wait(60)
+            ctx = clf.create_batch_context(8)
+            assert ctx.graph is not None
+            for _ in range(3):
+                answers.append(clf.predict_batch_with_context(ctx, segs))
+                answers.append(clf.predict_batch(segs))
+        except Exception as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+        finally:
+            done.set()
+
+    threads = [threading.Thread(target=streamer, args=(k,)) for k in range(len(recs))]
+    threads.append(threading.Thread(target=fourth))
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
+    if new_keys:
+        serial = [arrays(clf.analyze_samples(r, overlap_seconds=o))
+                  for r, o in zip(recs, overlaps)]
+    for k, calls in enumerate(streams):
+        assert calls and all(c == serial[k] for c in calls)
+    assert len(answers) == 6
+    for results in answers:
+        np.testing.assert_array_equal(np.stack([r.raw_scores for r in results]), serial_logits)

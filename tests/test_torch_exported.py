@@ -32,6 +32,7 @@ from test_external_full_models import TorchPerch, TorchV24, TorchV30, _export  #
 import birdnet_tpu as jbt  # noqa: E402
 import birdnet_tpu_torch as tbt  # noqa: E402
 from birdnet_tpu_torch.types import ModelType  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 JAX_TOL = 1e-4
 

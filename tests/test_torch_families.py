@@ -17,6 +17,7 @@ import birdnet_tpu_torch as tbt  # noqa: E402
 from birdnet_tpu.compiler import importer as jimp  # noqa: E402
 from birdnet_tpu_torch.compiler import importer as timp  # noqa: E402
 from birdnet_tpu_torch.models import birdnet_v30, perch_v2  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 FP32_TOL = 1e-4
 RATE, S = 32_000, 160_000

@@ -39,6 +39,7 @@ from _torch_dual import run_jax, run_port  # noqa: E402
 from birdnet_tpu_torch.compiler import ops as tops  # noqa: E402
 from birdnet_tpu_torch.compiler.ops_contrib import sampling_key  # noqa: E402
 from birdnet_tpu_torch.compiler.ops_extended import _draw  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 VOCAB = 50
 F32 = np.float32

@@ -13,12 +13,21 @@ bfloat16 NaN only as a NaN: torch's vectorized CPU cast writes 0xFFFF where
 XLA writes 0x7FC0), float outputs within 1e-6 (two CPU matmul libraries
 sum in different orders).
 
-Then BirdNET v2.4 at width 0.1, depth 1 in the three weight forms of
-tests/_torch_dtype_forms.py (bfloat16-stored, FP8 QDQ, int4 blocks):
-through both packages' ``Classifier.builder()`` at fp32 the logits agree
-within 1e-4 of their scale and the port's within 1e-4 of its yardstick
-file's; a subprocess with ``sys.modules['ml_dtypes'] = None`` gives the
-same logits bit for bit and round-trips each form through ``.btck``."""
+Then BirdNET v2.4 at width 0.1, depth 1 in the four forms of
+tests/_torch_dtype_forms.py (bfloat16-stored, FP8 QDQ, int4 blocks, and
+layers computing in bfloat16): through both packages'
+``Classifier.builder()`` at fp32 the logits agree within 1e-4 of their
+scale and the port's within 1e-4 of its yardstick file's (2^-7 for
+``bf16_direct``, whose activations round to bfloat16 in four layers); a
+subprocess with ``sys.modules['ml_dtypes'] = None`` gives the same logits
+bit for bit and round-trips each form through ``.btck``.
+
+Last, ``.int8()`` over ``bf16_direct``: the port, in a subprocess with
+ml_dtypes blocked, picks the same layers as the JAX package (a layer that
+reads a bfloat16 weight directly stays float), gives as many
+``QLinearConv`` nodes and int8 logits within 1e-2 of the JAX package's
+scale; a file whose only eligible layer reads a bfloat16 weight directly
+raises ``ModelLoadError`` in both."""
 
 from __future__ import annotations
 
@@ -638,6 +647,12 @@ def _port_logits(path: str) -> np.ndarray:
     return _logits(birdnet_tpu_torch, path, with_device="cpu")
 
 
+# The port's distance from its yardstick file: the weight-only forms
+# dequantize to the yardstick's weights exactly; bf16_direct's four layers
+# also round their activations to bfloat16.
+YARD_TOL = {"bf16_direct": BF16_TOL}
+
+
 @pytest.mark.parametrize("form", forms.FORMS)
 def test_weight_form_through_both_classifiers(form, form_files):
     path, yard = form_files[form]
@@ -646,7 +661,7 @@ def test_weight_form_through_both_classifiers(form, form_files):
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= FORM_TOL * scale
     ref = _port_logits(yard)
-    assert np.abs(got - ref).max() <= FORM_TOL * np.abs(ref).max()
+    assert np.abs(got - ref).max() <= YARD_TOL.get(form, FORM_TOL) * np.abs(ref).max()
 
 
 def test_weight_forms_without_ml_dtypes(form_files, tmp_path):
@@ -682,3 +697,134 @@ def test_weight_forms_without_ml_dtypes(form_files, tmp_path):
     for form, (path, _) in form_files.items():
         np.testing.assert_array_equal(res[form], _port_logits(path))
         np.testing.assert_array_equal(res[form + "_btck"], res[form])
+
+
+# ---------------------------------------------------------------------------
+# .int8() over layers that read a bfloat16 weight directly
+# ---------------------------------------------------------------------------
+
+# The int8 forward of one file through both packages' builders at fp32: max
+# |Δ| over the largest |logit| (tests/test_torch_quantize.py's bound).
+INT8_SCALED_TOL = 1e-2
+
+
+def _all_direct_bytes() -> bytes:
+    """Conv → Relu → Cast(BFLOAT16) → Conv (BFLOAT16 weight and bias) →
+    Cast(FLOAT) → Relu → Conv at opset 17: the first conv reads the graph
+    input and the last gives the graph output (both stay float), so the
+    only layer the quantizer could pick reads its weight in bfloat16."""
+    rng = np.random.default_rng(8)
+    w = [rng.normal(size=(4, 4, 1, 1)).astype(np.float32) * 0.5 for _ in range(3)]
+    inits = [P.TensorProto.from_numpy(w[0], "w1"),
+             P.TensorProto.from_numpy(torch.from_numpy(w[1]).to(torch.bfloat16), "w2"),
+             P.TensorProto.from_numpy(torch.ones(4, dtype=torch.bfloat16), "b2"),
+             P.TensorProto.from_numpy(w[2], "w3")]
+    nodes = [P.make_node("Conv", ["x", "w1"], ["c1"]),
+             P.make_node("Relu", ["c1"], ["r1"]),
+             P.make_node("Cast", ["r1"], ["h"], to=DT.BFLOAT16),
+             P.make_node("Conv", ["h", "w2", "b2"], ["c2"]),
+             P.make_node("Cast", ["c2"], ["f"], to=DT.FLOAT),
+             P.make_node("Relu", ["f"], ["r2"]),
+             P.make_node("Conv", ["r2", "w3"], ["y"])]
+    return _model_bytes(nodes, [_vi("x", [1, 4, 8, 8])], [_vi("y", [1, 4, 8, 8])],
+                        inits, opset=17)
+
+
+def _all_direct_input() -> np.ndarray:
+    return np.random.default_rng(9).normal(size=(1, 4, 8, 8)).astype(np.float32)
+
+
+def _calibration():
+    return [_segments()[:2]]
+
+
+@pytest.fixture(scope="module")
+def port_int8_without_ml_dtypes(form_files, tmp_path_factory):
+    """The port's half, in a fresh process with ml_dtypes blocked: the
+    names of the nodes its quantizer picks on ``bf16_direct``, its
+    QLinearConv count, its int8 logits, and the error of the all-direct
+    file."""
+    tmp = tmp_path_factory.mktemp("int8_direct")
+    direct = tmp / "all_direct.onnx"
+    direct.write_bytes(_all_direct_bytes())
+    out = tmp / "port.npz"
+    code = (
+        "import sys, json\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        "import numpy as np\n"
+        "from birdnet_tpu_torch import Classifier\n"
+        "from birdnet_tpu_torch.compiler import importer, quantize\n"
+        "picked = []\n"
+        "pick = quantize._eligible_nodes\n"
+        "def record(*a, **k):\n"
+        "    out = pick(*a, **k)\n"
+        "    picked.append([n.name for n, *_ in out])\n"
+        "    return out\n"
+        "quantize._eligible_nodes = record\n"
+        f"labels = [f's{{i}}' for i in range({N_SPECIES})]\n"
+        "segs = (np.random.default_rng(6).normal(size=(3, 144000)) * 0.1).astype(np.float32)\n"
+        f"clf = (Classifier.builder().model_path({form_files['bf16_direct'][0]!r})\n"
+        "       .labels(labels).precision('fp32').with_device('cpu').int8([segs[:2]]).build())\n"
+        "logits = np.stack([r.raw_scores for r in clf.predict_batch(segs)])\n"
+        "n_qconv = sum(n.op_type == 'QLinearConv' for n in clf._imported.graph.node)\n"
+        "int8_picked = list(picked)\n"
+        "x = np.random.default_rng(9).normal(size=(1, 4, 8, 8)).astype(np.float32)\n"
+        "try:\n"
+        f"    quantize.quantize_model(importer.import_onnx({str(direct)!r}), [x], device='cpu')\n"
+        "    error = None\n"
+        "except Exception as e:\n"
+        "    error = [type(e).__name__, str(e)]\n"
+        f"np.savez({str(out)!r}, logits=logits)\n"
+        "print('RESULT', json.dumps({'picked': int8_picked, 'n_qconv': int(n_qconv),\n"
+        "      'error': error, 'ml_dtypes': repr(sys.modules.get('ml_dtypes'))}))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert proc.returncode == 0, proc.stderr
+    (line,) = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+    result = json.loads(line[len("RESULT "):])
+    assert result["ml_dtypes"] == "None"
+    result["logits"] = np.load(out)["logits"]
+    result["all_direct"] = str(direct)
+    return result
+
+
+def test_int8_over_bf16_direct_picks_the_jax_layers(form_files, port_int8_without_ml_dtypes,
+                                                    monkeypatch):
+    """``.int8()`` on ``bf16_direct``: the same picked layers (the four
+    bfloat16 ones left float) and QLinearConv count as the JAX package,
+    int8 logits within INT8_SCALED_TOL of its scale."""
+    from birdnet_tpu.compiler import quantize as jq
+
+    picked = []
+    pick = jq._eligible_nodes
+
+    def record(*args, **kwargs):
+        out = pick(*args, **kwargs)
+        picked.append([n.name for n, *_ in out])
+        return out
+
+    monkeypatch.setattr(jq, "_eligible_nodes", record)
+    clf = (birdnet_tpu.Classifier.builder().model_path(form_files["bf16_direct"][0])
+           .labels(LABELS).precision("fp32").int8(_calibration()).build())
+    want = np.stack([r.raw_scores for r in clf.predict_batch(_segments())])
+    port = port_int8_without_ml_dtypes
+    assert port["picked"] == picked and len(picked) == 1
+    direct = {n.name for n in forms._direct_convs(
+        P.decode_model(Path(form_files["bf16_direct"][1]).read_bytes()).graph)}
+    assert len(direct) == forms.DIRECT_LAYERS and not direct & set(picked[0])
+    assert port["n_qconv"] == sum(n.op_type == "QLinearConv" for n in clf._imported.graph.node)
+    assert port["n_qconv"] > 0
+    got = port["logits"]
+    assert got.shape == want.shape == (3, N_SPECIES)
+    assert np.abs(got - want).max() <= INT8_SCALED_TOL * np.abs(want).max()
+
+
+def test_int8_with_only_bf16_direct_layers_fails_in_both(port_int8_without_ml_dtypes):
+    from birdnet_tpu.compiler import quantize as jq
+    from birdnet_tpu.errors import ModelLoadError
+
+    with pytest.raises(ModelLoadError, match="no quantizable layers found") as info:
+        jq.quantize_model(jimp.import_onnx(port_int8_without_ml_dtypes["all_direct"]),
+                          [_all_direct_input()])
+    assert port_int8_without_ml_dtypes["error"] == ["ModelLoadError", str(info.value)]

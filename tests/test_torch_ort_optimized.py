@@ -29,6 +29,7 @@ import birdnet_tpu_torch as tbt  # noqa: E402
 from birdnet_tpu.compiler.importer import import_onnx as j_import  # noqa: E402
 from birdnet_tpu_torch.compiler.importer import import_onnx as t_import  # noqa: E402
 from birdnet_tpu_torch.models import birdnet_v24, perch_v2  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 TOL = 1e-4
 CASES = [("v24", "conv"), ("v24", "stft"), ("perch", "conv")]

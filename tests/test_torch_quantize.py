@@ -20,6 +20,7 @@ from birdnet_tpu_torch.compiler import importer as timp  # noqa: E402
 from birdnet_tpu_torch.compiler import quantize as tq  # noqa: E402
 from birdnet_tpu_torch.models import birdnet_v24, birdnet_v30, perch_v2  # noqa: E402
 from birdnet_tpu_torch.onnx import proto as P  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 LABELS = [f"s{i}" for i in range(32)]
 # Calibration interprets the float graph at fp32 in both packages; the sums

@@ -33,6 +33,7 @@ from birdnet_tpu.errors import RangeFilterInferenceError as JRangeError  # noqa:
 from birdnet_tpu.serve import make_server as j_make_server  # noqa: E402
 from birdnet_tpu_torch.errors import RangeFilterInferenceError as TRangeError  # noqa: E402
 from birdnet_tpu_torch.serve import make_server as t_make_server  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 LOCATION = "lat=42.5&lon=-76.4&date=06-15"
 

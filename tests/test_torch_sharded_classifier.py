@@ -15,6 +15,7 @@ import birdnet_tpu_torch as tbt  # noqa: E402
 from birdnet_tpu.parallel import make_mesh as j_make_mesh  # noqa: E402
 from birdnet_tpu.testutil import mock_labels, sine_segment  # noqa: E402
 from birdnet_tpu_torch.parallel import make_mesh as t_make_mesh  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 LABELS = mock_labels(10)

@@ -20,6 +20,7 @@ from birdnet_tpu.errors import ModelLoadError as JModelLoadError  # noqa: E402
 from birdnet_tpu.onnx import proto as P  # noqa: E402
 from birdnet_tpu_torch.compiler import importer as timp  # noqa: E402
 from birdnet_tpu_torch.errors import ModelLoadError as TModelLoadError  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -21,6 +21,7 @@ import test_ops_extended as ext  # noqa: E402
 from _torch_dual import dual, graph_runner, jax_cases, run_case  # noqa: E402
 
 from birdnet_tpu.onnx import proto as P  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 SPATIAL = ("grid_sample", "affine_grid", "roi_align", "col2im", "nms", "deform_conv",
            "max_roi_pool")

@@ -20,6 +20,7 @@ from birdnet_tpu_torch.compiler.fuse_mbconv import unfuse_mbconv  # noqa: E402
 from birdnet_tpu_torch.compiler.fuse_stage_prefix import unfuse_stage_prefix  # noqa: E402
 from birdnet_tpu_torch.models import birdnet_v24  # noqa: E402
 from birdnet_tpu_torch.ops.cuda import stage_prefix as sp  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 # tests/test_stage123.py's reduced-width six-block schedule (the real
 # strides and residuals, channel counts shrunk for interpret mode).

@@ -15,6 +15,7 @@ import birdnet_tpu as jbt  # noqa: E402
 import birdnet_tpu_torch as tbt  # noqa: E402
 from birdnet_tpu_torch.compiler import stream as tstream  # noqa: E402
 from birdnet_tpu_torch.models import birdnet_v24  # noqa: E402
+from _torch_threads import torch_threads  # noqa: E402,F401
 
 LABELS = [f"species_{i}" for i in range(10)]
 RATE = 48_000
