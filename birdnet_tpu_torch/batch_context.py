@@ -220,7 +220,8 @@ class _CapturedBatch:
     captured once into a CUDA graph over static device buffers."""
 
     def __init__(self, engine, shape, with_embeddings: bool):
-        from .ops.cuda.build import collector_paused, holding, one_capture_at_a_time
+        from .ops.cuda.build import holding, one_capture_at_a_time
+        from .utils.collector import collector_paused
         from .ops.topk import fused_sigmoid_topk
 
         self._engine = engine

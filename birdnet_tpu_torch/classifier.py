@@ -56,11 +56,43 @@ from .errors import (
 )
 from .inference_options import InferenceOptions
 from .labels import load_labels_from_file, species_mask_from_names
-from .postprocess import top_k_from_device
-from .types import ModelConfig, ModelType, PredictionResult
-from .utils.profiling import span
+from .types import ModelConfig, ModelType, Prediction, PredictionResult
+from .utils.collector import collector_paused
+from .utils.profiling import count, span
 
 _PRECISIONS = ("fp32", "mixed", "fast", "bf16")
+
+
+def top_k_rows_from_device(
+    values: np.ndarray,
+    indices: np.ndarray,
+    labels: Sequence[str],
+    min_confidence: Optional[float] = None,
+    allowed: Optional[np.ndarray] = None,
+) -> List[List[Prediction]]:
+    """:func:`~birdnet_tpu_torch.postprocess.top_k_from_device` over every
+    row of ``[N, K]`` arrays in one pass: each array is read once by
+    ``tolist()``, not row by row.
+
+    ``allowed`` (bool, or None for every species) drops the species-mask
+    stragglers: index ``i`` stays only where ``i < len(allowed)`` and
+    ``allowed[i]``. Confidences are Python floats of the device's values and
+    indices Python ints, as ``top_k_from_device`` gives them.
+    """
+    n_labels = len(labels)
+    indices = np.asarray(indices)
+    if allowed is None:
+        keep = np.ones(indices.shape, dtype=bool)
+    else:
+        # One False past the mask's end stands for every index beyond it.
+        allowed = np.append(np.asarray(allowed, dtype=bool), False)
+        keep = allowed[np.minimum(indices, len(allowed) - 1)]
+    return [
+        [Prediction(labels[i] if i < n_labels else f"unknown_{i}", v, i)
+         for v, i, ok in zip(vals, idxs, oks)
+         if ok and (min_confidence is None or v >= min_confidence)]
+        for vals, idxs, oks in zip(values.tolist(), indices.tolist(), keep.tolist())
+    ]
 
 
 class ClassifierBuilder:
@@ -609,16 +641,10 @@ class Classifier:
             conf, idx, times = eng.analyze(
                 samples, overlap_seconds, options, species_mask=mask
             )
-            # One span around the whole loop: the per-segment result objects
-            # and the collections they set off (its ``.gc`` child).
+            # The per-segment result objects, and the collections they set
+            # off (the span's ``.gc`` child) once the pause has ended.
             with span("birdnet.classifier.results"):
-                out = []
-                for i in range(conf.shape[0]):
-                    preds = self._mask_preds(top_k_from_device(
-                        conf[i], idx[i], self._labels, self._min_confidence
-                    ), mask)
-                    out.append((float(times[i]), preds))
-            return out
+                return self._result_rows(conf, idx, times.tolist(), mask)
 
     def _validate_call_mask(self, species_mask):
         if species_mask is None:
@@ -664,11 +690,10 @@ class Classifier:
                 n_segments=seg1 - seg0, species_mask=mask,
             )
             t0 = lo / self._config.sample_rate
-            for i in range(conf.shape[0]):
-                preds = self._mask_preds(top_k_from_device(
-                    conf[i], idx[i], self._labels, self._min_confidence
-                ), mask)
-                yield (t0 + float(times[i]), preds)
+            # Built inside the collector's pause, yielded outside it: a
+            # consumer that stops iterating must not hold the collector off.
+            yield from self._result_rows(
+                conf, idx, [t0 + t for t in times.tolist()], mask)
 
     def analyze_wav(
         self,
@@ -721,29 +746,40 @@ class Classifier:
 
     # -- helpers -------------------------------------------------------------
 
-    def _mask_preds(self, predictions, row_mask=None):
-        """Drop species-mask stragglers: when top-K exceeds the allowed-set
-        size, masked (-inf logit) entries surface with confidence 0."""
-        if self._species_mask is None and row_mask is None:
-            return predictions
+    def _result_rows(self, conf, idx, starts, row_mask):
+        """``[(start, list[Prediction])]`` of a streamed stretch, built in
+        one pass over its ``[N, K]`` top-K with the cyclic collector paused:
+        the rows are acyclic and the caller keeps them, so a collection
+        inside the build would free nothing and scan every row on its way
+        to the oldest generation. A collection that falls due meanwhile
+        runs once, as the pause ends."""
+        with collector_paused() as paused:
+            rows = list(zip(starts, top_k_rows_from_device(
+                conf, idx, self._labels, self._min_confidence,
+                self._allowed(row_mask))))
+        count("birdnet.classifier.result_rows", len(rows))
+        if paused:
+            count("birdnet.classifier.results_paused")
+        return rows
 
-        def allowed(i: int) -> bool:
-            if self._species_mask is not None and not (
-                i < len(self._species_mask) and self._species_mask[i]
-            ):
-                return False
-            if row_mask is not None and not (
-                i < len(row_mask) and row_mask[i]
-            ):
-                return False
-            return True
-
-        return [p for p in predictions if allowed(p.index)]
+    def _allowed(self, row_mask):
+        """The build-time species mask AND the per-call one as one bool
+        array (an index past either mask's end is not allowed), or None
+        when neither restricts."""
+        masks = [m for m in (self._species_mask, row_mask) if m is not None]
+        if not masks:
+            return None
+        n = min(len(m) for m in masks)
+        allowed = np.ones(n, dtype=bool)
+        for m in masks:
+            allowed &= np.asarray(m[:n], dtype=bool)
+        return allowed
 
     def _result(self, conf, idx, logits, emb, row_mask=None) -> PredictionResult:
-        predictions = self._mask_preds(top_k_from_device(
-            conf, idx, self._labels, self._min_confidence
-        ), row_mask)
+        predictions = top_k_rows_from_device(
+            conf[None], idx[None], self._labels, self._min_confidence,
+            self._allowed(row_mask),
+        )[0]
         embeddings = None
         if emb is not None and self._config.model_type.has_embeddings:
             embeddings = np.asarray(emb)

@@ -283,7 +283,8 @@ class _TileProgram:
         the body read the card on the host, the key's graph over each
         tile audio of ``audios``."""
         from ..batch_context import _WARMUP_CALLS
-        from ..ops.cuda.build import add_launches, collector_paused, holding, tally_launches
+        from ..ops.cuda.build import add_launches, holding, tally_launches
+        from ..utils.collector import collector_paused
 
         eng = self._eng
         device = eng.device

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import gc
 import hashlib
 import os
 import shutil
@@ -119,38 +118,6 @@ def one_capture_at_a_time():
     from overlapping. Re-entrant."""
     with _capture_lock:
         yield
-
-
-_collector_lock = threading.Lock()
-_collector_pauses = 0
-_collector_was_on = False
-
-
-@contextlib.contextmanager
-def collector_paused():
-    """Python's cyclic garbage collector off, in every thread, inside the
-    block: a CUDA graph is captured there. A collection inside a capture
-    finalizes whatever dead cycles it finds, and one that holds another
-    CUDA graph (a dropped engine's stream keys, a batch context) or a
-    pinned buffer last used on the capturing stream makes an unsafe CUDA
-    call in the middle of the capture: the capture is invalidated, and its
-    next launch or its end raises ``cudaErrorStreamCaptureInvalidated``.
-    Such cycles wait for a collection after the block. Blocks may nest and
-    overlap across threads; the collector runs again after the last one
-    ends, if it ran before the first began."""
-    global _collector_pauses, _collector_was_on
-    with _collector_lock:
-        if _collector_pauses == 0:
-            _collector_was_on = gc.isenabled()
-            gc.disable()
-        _collector_pauses += 1
-    try:
-        yield
-    finally:
-        with _collector_lock:
-            _collector_pauses -= 1
-            if _collector_pauses == 0 and _collector_was_on:
-                gc.enable()
 
 
 class KernelBuildError(RuntimeError):

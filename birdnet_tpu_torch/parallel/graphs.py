@@ -107,7 +107,8 @@ class _MeshStep:
         """``fn()`` captured on ``device``: (graph, its static outputs, the
         launches the capture counted). The step keeps the cached operands
         the graph reads (``build.hold``)."""
-        from ..ops.cuda.build import add_launches, collector_paused, holding, tally_launches
+        from ..ops.cuda.build import add_launches, holding, tally_launches
+        from ..utils.collector import collector_paused
 
         eng = self._eng
         graph = torch.cuda.CUDAGraph()

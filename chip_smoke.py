@@ -362,6 +362,7 @@ from birdnet_tpu_torch.ops.cuda import stage_prefix as spx
 from birdnet_tpu_torch.serve import ServeClient, make_server
 from birdnet_tpu_torch.types import ModelType
 from birdnet_tpu_torch.utils.audio_io import read_wav, write_wav
+from birdnet_tpu_torch.utils.collector import collector_paused
 
 N_SEG, S, HOP, FLEN, N_MELS = 32, 144_000, 280, 1024, 96
 SEED = 0
@@ -468,7 +469,7 @@ def time_ms(fn, reps: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with build.collector_paused(), torch.cuda.graph(graph):
+    with collector_paused(), torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()

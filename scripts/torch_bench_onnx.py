@@ -125,7 +125,8 @@ class Bench:
     def capture(self, inputs):
         """(graph, its static outputs, the cached operands it holds) of one
         forward, after a warm call on a side stream."""
-        from birdnet_tpu_torch.ops.cuda.build import collector_paused, holding
+        from birdnet_tpu_torch.ops.cuda.build import holding
+        from birdnet_tpu_torch.utils.collector import collector_paused
 
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))

@@ -29,6 +29,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from birdnet_tpu_torch.ops.cuda import build  # noqa: E402
 from birdnet_tpu_torch.ops.cuda import stage_prefix as sp  # noqa: E402
+from birdnet_tpu_torch.utils.collector import collector_paused  # noqa: E402
 
 FULL = [(32, 32, 8, 24, 1, False), (24, 24, 6, 24, 1, True), (24, 96, 24, 40, 2, False),
         (40, 160, 40, 40, 1, True), (40, 160, 40, 80, 2, False), (80, 320, 80, 80, 1, True)]
@@ -90,7 +91,7 @@ def device_ms(fn, reps: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with build.collector_paused(), torch.cuda.graph(graph):
+    with collector_paused(), torch.cuda.graph(graph):
         for _ in range(reps):
             fn()
     graph.replay()

@@ -177,7 +177,8 @@ def prefix_forward(imported, tensor: str, precision: str, params, device):
 def _time_cuda(fn, x, reps: int, runs: int) -> float:
     """Median µs of one ``fn(x)`` over ``runs`` replays of a CUDA graph of
     ``reps`` calls (its cached operands held for the graph's life)."""
-    from birdnet_tpu_torch.ops.cuda.build import collector_paused, holding
+    from birdnet_tpu_torch.ops.cuda.build import holding
+    from birdnet_tpu_torch.utils.collector import collector_paused
 
     device = x.device
     side = torch.cuda.Stream(device)

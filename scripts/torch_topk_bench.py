@@ -46,7 +46,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from birdnet_tpu_torch.ops.cuda.build import collector_paused  # noqa: E402
+from birdnet_tpu_torch.utils.collector import collector_paused  # noqa: E402
 from birdnet_tpu_torch.ops.topk import fused_sigmoid_topk  # noqa: E402
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}

@@ -1,5 +1,5 @@
 """The collector pause around the port's CUDA graph captures
-(``birdnet_tpu_torch/ops/cuda/build.py::collector_paused``): Python's
+(``birdnet_tpu_torch/utils/collector.py::collector_paused``): Python's
 cyclic collector, run in the middle of a capture, finalizes dead cycles,
 and one holding another CUDA graph or a pinned buffer makes an unsafe CUDA
 call that invalidates the capture. The card's side is in
@@ -15,7 +15,7 @@ import pytest
 
 pytest.importorskip("torch")
 
-from birdnet_tpu_torch.ops.cuda.build import collector_paused  # noqa: E402
+from birdnet_tpu_torch.utils.collector import collector_paused  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -25,8 +25,8 @@ def collector_on():
     was_on = gc.isenabled()
     gc.enable()
     yield
-    if not was_on:
-        gc.disable()
+    # As it was before the test, whatever the test left.
+    (gc.enable if was_on else gc.disable)()
 
 
 @pytest.mark.parametrize("before", [True, False])
@@ -84,6 +84,38 @@ def test_the_pause_ends_when_the_block_raises(collector_on):
     with pytest.raises(RuntimeError), collector_paused(), collector_paused():
         raise RuntimeError("capture refused")
     assert gc.isenabled()
+
+
+@pytest.mark.parametrize("before", [True, False])
+def test_only_the_block_that_turned_it_off_is_told_so(collector_on, before):
+    """The outer block is given True where it turned the collector off; a
+    nested block, and any block while the caller had it off, False."""
+    if not before:
+        gc.disable()
+    with collector_paused() as outer:
+        with collector_paused() as inner:
+            assert (outer, inner) == (before, False)
+    assert gc.isenabled() is before
+
+
+def test_a_block_beside_another_threads_block_is_told_false(collector_on):
+    entered, release = threading.Event(), threading.Event()
+    told = []
+
+    def other():
+        with collector_paused() as turned_off:
+            told.append(turned_off)
+            entered.set()
+            release.wait(10)
+
+    t = threading.Thread(target=other)
+    t.start()
+    assert entered.wait(10)
+    with collector_paused() as turned_off:
+        assert not turned_off
+    release.set()
+    t.join(10)
+    assert not t.is_alive() and told == [True] and gc.isenabled()
 
 
 def _capture_files():

@@ -1,9 +1,10 @@
 """The port's spans and counters (birdnet_tpu_torch/utils/profiling.py's
 recorder) along the streaming path on the CPU: ClassifierBuilder.build's span,
-the classifier's and the stream engine's spans with their calls, the tile and
-padded-row counters, the collector's time as a span's ``gc`` child, the
-spans in a torch.profiler trace inside the caller's own annotation, two
-caller threads adding up, and answers untouched by the recording."""
+the classifier's and the stream engine's spans with their calls, the tile,
+padded-row and result-row counters, the collector's time as a span's ``gc``
+child, the spans in a torch.profiler trace inside the caller's own
+annotation, two caller threads adding up, and answers untouched by the
+recording."""
 
 import contextlib
 import gc
@@ -75,12 +76,15 @@ def test_build_records_each_step_once(clf):
 def test_one_call_records_its_spans_and_counters(clf, segments):
     """17 and 20 segments both take 5 tiles of 4: the counters follow the
     segments, and every span's calls the tiles alone."""
+    collector_on = gc.isenabled()
     out, d = _recorded(clf.analyze_samples, _pcm(segments))
     assert len(out) == segments
     tiles = -(-segments // TILE)
     counters = {"birdnet.stream.tiles": tiles, "birdnet.stream.rows": tiles * TILE,
                 "birdnet.stream.rows_padded": tiles * TILE - segments,
-                "birdnet.stream.eager_tiles": tiles}
+                "birdnet.stream.eager_tiles": tiles,
+                "birdnet.classifier.result_rows": segments,
+                "birdnet.classifier.results_paused": int(collector_on)}
     # A delta leaves out the counters that did not move.
     assert d.counters == {k: n for k, n in counters.items() if n}
     calls = {k: n for k, n in d.calls.items() if not k.endswith(".gc")}
