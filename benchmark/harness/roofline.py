@@ -8,6 +8,11 @@ program's prepared tables. ``bound`` takes the LARGER of the memory time
 and each operand type's compute time; it does not add them. For B4 that
 means the float32 (SIMT) depthwise, stem and squeeze-excite work bounds it
 alone, though the same kernels also run bfloat16 products.
+
+The whole step's operations (``forward_flops``) are counted from the
+frozen generator's graph by a table of shape rules, one per ONNX op, so
+that a configuration of any architecture its generator writes is counted
+without an edit here: a new op is a new rule.
 """
 
 from __future__ import annotations
@@ -82,44 +87,194 @@ def b4_work(cfg: dict, rows: int) -> Tuple[float, Dict[str, float]]:
 
 def forward_flops(gb, sample_count: int) -> float:
     """Operations of one segment's forward: twice the multiply-adds of every
-    Conv and Gemm of the frozen generator's graph, by the shapes its nodes
-    give one another from ``[1, sample_count]``."""
+    Conv, Gemm and MatMul of the frozen generator's graph, by the shapes its
+    nodes give one another from ``[1, sample_count]`` at its ``input``.
+
+    Every op is looked up in :data:`SHAPE_RULES`, which gives its output's
+    shape and its multiply-adds. The products are the only ops that count;
+    elementwise ops, normalisations, softmax, reductions and the shape ops
+    count none. An op without a rule, a node with more than one output, or a
+    shape operand that is not one of the graph's constants raises
+    ``ValueError``: nothing is counted as zero unseen."""
     shapes = {"input": (1, sample_count)}
     shapes.update({k: tuple(v.shape) for k, v in gb.consts.items()})
     shapes.update({name: shape for name, shape, *_ in gb.specs})
-    flops = 0.0
+    macs = 0
     for op, ins, outs, attrs in gb.nodes:
-        x = shapes[ins[0]]
-        if op in ("Unsqueeze", "Squeeze"):
-            axes = [int(a) % (len(x) + (op == "Unsqueeze")) for a in gb.consts[ins[1]]]
-            y = list(x)
-            for a in sorted(axes, reverse=op == "Squeeze"):
-                y.insert(a, 1) if op == "Unsqueeze" else y.pop(a)
-        elif op == "Conv":
-            wshape = shapes[ins[1]]
-            k, s, p = attrs["kernel_shape"], attrs["strides"], attrs["pads"]
-            nd = len(k)
-            sp = [(x[2 + i] + p[i] + p[nd + i] - k[i]) // s[i] + 1 for i in range(nd)]
-            y = [x[0], wshape[0], *sp]
-            flops += 2.0 * x[0] * wshape[0] * math.prod(sp) * wshape[1] * math.prod(k)
-        elif op in ("Mul", "Add"):
-            y = list(np.broadcast_shapes(x, shapes[ins[1]]))
-        elif op == "GlobalAveragePool":
-            y = [x[0], x[1]] + [1] * (len(x) - 2)
-        elif op == "Flatten":
-            y = [x[0], math.prod(x[1:])]
-        elif op == "Gemm":
-            wshape = shapes[ins[1]]
-            y = [x[0], wshape[0]]
-            flops += 2.0 * x[0] * wshape[0] * wshape[1]
-        elif op == "Transpose":
-            y = [x[i] for i in attrs["perm"]]
-        elif op == "ReduceMean":
-            axes = {int(a) % len(x) for a in gb.consts[ins[1]]}
-            y = [d for i, d in enumerate(x) if i not in axes]
-        elif op in ("Log", "Sigmoid", "Relu", "BatchNormalization"):
-            y = list(x)
-        else:
+        rule = SHAPE_RULES.get(op)
+        if rule is None:
             raise ValueError(f"forward_flops: no shape rule for {op}")
-        shapes[outs[0]] = tuple(y)
-    return flops
+        if len(outs) != 1:
+            raise ValueError(f"forward_flops: {op} has {len(outs)} outputs, the rules give one")
+        xs = [shapes[name] if name else None for name in ins]
+        y, n = rule(xs, attrs, _Consts(op, ins, gb.consts))
+        shapes[outs[0]] = tuple(int(d) for d in y)
+        macs += n
+    return 2.0 * macs
+
+
+class _Consts:
+    """The values of a node's constant inputs (shape targets, axes, slice
+    bounds, pads), read from the graph's constants."""
+
+    def __init__(self, op: str, ins, consts):
+        self.op, self.ins, self.consts = op, ins, consts
+
+    def __call__(self, i: int, default=None):
+        if i >= len(self.ins) or not self.ins[i]:
+            return default
+        if self.ins[i] not in self.consts:
+            raise ValueError(f"forward_flops: {self.op}'s input {self.ins[i]} is not a constant")
+        return [int(v) for v in np.asarray(self.consts[self.ins[i]]).reshape(-1)]
+
+
+def _axis(a: int, rank: int) -> int:
+    return a + rank if a < 0 else a
+
+
+def _same(xs, attrs, const):
+    return xs[0], 0
+
+
+def _broadcast(xs, attrs, const):
+    return np.broadcast_shapes(*[x for x in xs if x is not None]), 0
+
+
+def _reshape(xs, attrs, const):
+    x, y = xs[0], const(1)
+    if not attrs.get("allowzero", 0):
+        y = [x[i] if d == 0 else d for i, d in enumerate(y)]
+    if -1 in y:
+        k = y.index(-1)
+        y[k] = math.prod(x) // math.prod(d for i, d in enumerate(y) if i != k)
+    if math.prod(y) != math.prod(x):
+        raise ValueError(f"forward_flops: Reshape of {x} to {y}")
+    return y, 0
+
+
+def _transpose(xs, attrs, const):
+    x = xs[0]
+    return [x[i] for i in attrs.get("perm", range(len(x) - 1, -1, -1))], 0
+
+
+def _squeeze(xs, attrs, const):
+    x = xs[0]
+    axes = const(1, attrs.get("axes"))
+    if axes is None:
+        axes = [i for i, d in enumerate(x) if d == 1]
+    axes = {_axis(a, len(x)) for a in axes}
+    return [d for i, d in enumerate(x) if i not in axes], 0
+
+
+def _unsqueeze(xs, attrs, const):
+    y = list(xs[0])
+    axes = const(1, attrs.get("axes"))
+    for a in sorted(_axis(a, len(y) + len(axes)) for a in axes):
+        y.insert(a, 1)
+    return y, 0
+
+
+def _flatten(xs, attrs, const):
+    x = xs[0]
+    axis = _axis(attrs.get("axis", 1), len(x))
+    return [math.prod(x[:axis]), math.prod(x[axis:])], 0
+
+
+def _concat(xs, attrs, const):
+    y = list(xs[0])
+    axis = _axis(attrs["axis"], len(y))
+    y[axis] = sum(x[axis] for x in xs)
+    return y, 0
+
+
+def _slice(xs, attrs, const):
+    y = list(xs[0])
+    starts, ends = const(1), const(2)
+    axes = const(3, list(range(len(starts))))
+    steps = const(4, [1] * len(starts))
+    for start, end, axis, step in zip(starts, ends, axes, steps):
+        axis = _axis(axis, len(y))
+        y[axis] = len(range(*slice(start, end, step).indices(y[axis])))
+    return y, 0
+
+
+def _pad(xs, attrs, const):
+    y = list(xs[0])
+    pads = const(1)
+    axes = [_axis(a, len(y)) for a in const(3, list(range(len(y))))]
+    for i, axis in enumerate(axes):
+        y[axis] += pads[i] + pads[len(axes) + i]
+    return y, 0
+
+
+def _reduce_mean(xs, attrs, const):
+    x = xs[0]
+    axes = const(1, attrs.get("axes"))
+    if not axes:
+        if attrs.get("noop_with_empty_axes", 0):
+            return x, 0
+        axes = range(len(x))
+    axes = {_axis(a, len(x)) for a in axes}
+    if attrs.get("keepdims", 1):
+        return [1 if i in axes else d for i, d in enumerate(x)], 0
+    return [d for i, d in enumerate(x) if i not in axes], 0
+
+
+def _global_average_pool(xs, attrs, const):
+    x = xs[0]
+    return [x[0], x[1]] + [1] * (len(x) - 2), 0
+
+
+def _conv(xs, attrs, const):
+    """``[N, C, *spatial]`` by a ``[M, C / group, *kernel]`` weight, with
+    strides, dilations and explicit pads; ``N M prod(out) (C / group)
+    prod(kernel)`` multiply-adds."""
+    x, w = xs[0], xs[1]
+    if attrs.get("auto_pad", "NOTSET") != "NOTSET":
+        raise ValueError("forward_flops: Conv with auto_pad")
+    nd, kernel = len(w) - 2, w[2:]
+    strides = attrs.get("strides", [1] * nd)
+    dilations = attrs.get("dilations", [1] * nd)
+    pads = attrs.get("pads", [0] * 2 * nd)
+    if x[1] != w[1] * attrs.get("group", 1):
+        raise ValueError(f"forward_flops: Conv of {x} by {w} in {attrs.get('group', 1)} groups")
+    out = [(x[2 + i] + pads[i] + pads[nd + i] - dilations[i] * (kernel[i] - 1) - 1)
+           // strides[i] + 1 for i in range(nd)]
+    return [x[0], w[0], *out], x[0] * w[0] * math.prod(out) * w[1] * math.prod(kernel)
+
+
+def _gemm(xs, attrs, const):
+    """``A [M, K]`` by ``B [K, N]``, either transposed first; the bias
+    counts none."""
+    m, k = xs[0][::-1] if attrs.get("transA", 0) else xs[0]
+    k2, n = xs[1][::-1] if attrs.get("transB", 0) else xs[1]
+    if k != k2:
+        raise ValueError(f"forward_flops: Gemm of {xs[0]} by {xs[1]}")
+    return [m, n], m * k * n
+
+
+def _matmul(xs, attrs, const):
+    """numpy's ``matmul``: a 1-D operand gains a unit row (first) or column
+    (second) that the output drops; the leading dims broadcast."""
+    a, b = list(xs[0]), list(xs[1])
+    a_vec, b_vec = len(a) == 1, len(b) == 1
+    a = [1] + a if a_vec else a
+    b = b + [1] if b_vec else b
+    if a[-1] != b[-2]:
+        raise ValueError(f"forward_flops: MatMul of {xs[0]} by {xs[1]}")
+    batch = list(np.broadcast_shapes(tuple(a[:-2]), tuple(b[:-2])))
+    y = batch + ([] if a_vec else [a[-2]]) + ([] if b_vec else [b[-1]])
+    return y, math.prod(batch) * a[-2] * a[-1] * b[-1]
+
+
+# op -> rule(input shapes, attributes, constant reader) -> (output shape,
+# multiply-adds).
+SHAPE_RULES = {
+    **dict.fromkeys(("Relu", "Sigmoid", "Tanh", "Erf", "Log", "Exp", "Sqrt", "Neg", "Cast",
+                     "Identity", "Softmax", "LayerNormalization", "BatchNormalization"), _same),
+    **dict.fromkeys(("Add", "Sub", "Mul", "Div", "Pow", "Where"), _broadcast),
+    "Reshape": _reshape, "Transpose": _transpose, "Squeeze": _squeeze,
+    "Unsqueeze": _unsqueeze, "Flatten": _flatten, "Concat": _concat, "Slice": _slice,
+    "Pad": _pad, "ReduceMean": _reduce_mean, "GlobalAveragePool": _global_average_pool,
+    "Conv": _conv, "Gemm": _gemm, "MatMul": _matmul,
+}

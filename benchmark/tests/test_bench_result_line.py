@@ -18,7 +18,7 @@ from benchmark.tests.small import small_cell
 ROOT = Path(__file__).resolve().parents[2]
 
 
-@pytest.mark.parametrize("workload", ["v24_stream_1h", "perch_embed_1h"])
+@pytest.mark.parametrize("workload", ["v24_stream_1h", "perch_embed_1h", "v24_stream_10min"])
 @pytest.mark.parametrize("trace", [False, True])
 def test_result_line_keys(workload, trace):
     c = small_cell(workload)
