@@ -111,9 +111,10 @@ def import_onnx(source: Union[str, bytes, ModelProto],
     ``optimize`` runs the import-time graph rewrites of
     :mod:`birdnet_tpu_torch.compiler.optimize` (a byte-identical copy of the
     JAX package's passes), then the port's own attention bundling
-    (:mod:`birdnet_tpu_torch.compiler.fuse_attention`), whose chains fused
-    and kept the counters ``birdnet.compiler.attention_fused`` and
-    ``.attention_kept`` add up.
+    (:mod:`birdnet_tpu_torch.compiler.fuse_attention`) and GELU bundling
+    (:mod:`birdnet_tpu_torch.compiler.fuse_gelu`), whose chains fused and
+    kept the counters ``birdnet.compiler.attention_fused``,
+    ``.attention_kept``, ``.gelu_fused`` and ``.gelu_kept`` add up.
 
     ``freeze_inputs`` maps graph-input names to fixed values: each becomes
     a host constant (and leaves ``input_names``), so an ``If`` gated on it
@@ -194,6 +195,7 @@ def import_onnx(source: Union[str, bytes, ModelProto],
     if optimize:
         from ..utils.profiling import count
         from .fuse_attention import fuse_attention
+        from .fuse_gelu import fuse_gelu
         from .optimize import optimize_graph
 
         _stand_in_wire_floats(tensors)
@@ -204,6 +206,9 @@ def import_onnx(source: Union[str, bytes, ModelProto],
         fused, kept = fuse_attention(graph, tensors, opset)
         count("birdnet.compiler.attention_fused", fused)
         count("birdnet.compiler.attention_kept", kept)
+        fused, kept = fuse_gelu(graph, tensors)
+        count("birdnet.compiler.gelu_fused", fused)
+        count("birdnet.compiler.gelu_kept", kept)
 
     params, consts = split_params(tensors)
 

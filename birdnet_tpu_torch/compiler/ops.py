@@ -98,6 +98,7 @@ import torch.nn.functional as F
 from ..onnx.proto import DataType as _DT
 from ..onnx.proto import (Int4Tensor, WireTensor, wire_bits, wire_from_bits,
                           wire_tensor)
+from ..ops.cuda import gelu as _gelu_kernels
 from ..ops.cuda.build import count_launch
 from ..ops.cuda.qconv import EPILOGUE_ACTS as _EPILOGUE_ACTS
 from ..ops.cuda.qconv import qconv1x1_requant
@@ -151,8 +152,9 @@ _GRADUATED_MS_OPS = frozenset(
 
 
 # The internal nodes of the port's own import-time passes (``_FusedAttention``,
-# compiler/fuse_attention.py), which the JAX package does not have: looked up
-# as core names, but left out of ``supported_ops()``, the JAX core table.
+# compiler/fuse_attention.py; ``_FusedGelu``, compiler/fuse_gelu.py), which
+# the JAX package does not have: looked up as core names, but left out of
+# ``supported_ops()``, the JAX core table.
 _PORT_REGISTRY: Dict[str, Callable] = {}
 
 
@@ -472,6 +474,13 @@ def _folding(fn):
 # Precision policies (birdnet_tpu/compiler/ops.py:177-206).
 _BF16_OPERAND_POLICIES = ("mixed", "fast", "bf16")
 _NARROW_FLOATS = (torch.bfloat16, torch.float16)
+
+# The nodes whose lowerings put a floating operand through ``_mxu_operands``
+# (``_policy_operands``, ``_gemm``): under ``fast`` and ``bf16`` each rounds
+# the inputs at these positions to bf16 before its product. The GELU
+# bundling (compiler/fuse_gelu.py) stores bf16 for a chain that only these
+# read.
+BF16_OPERAND_INPUTS = {"Conv": (0,), "MatMul": (0, 1), "Gemm": (0, 1)}
 
 
 def _mxu_operands(ctx: OpContext, *xs):
@@ -3758,6 +3767,41 @@ def _fused_attention(ctx, q, k, v):
 
 
 _PORT_REGISTRY["_FusedAttention"] = _registered(_fused_attention, False)
+
+
+# The port's internal ``_FusedGelu`` node (compiler/fuse_gelu.py: an exported
+# exact-erf GELU chain with the bias Add or channel LayerNorm that feeds it)
+# runs one kernel of csrc/gelu.cu on the card under the bfloat16 policies,
+# with the chain's own arithmetic; everywhere else it interprets the chain.
+# ``GELU_LAUNCHES`` counts its launches by form (a replay adds its capture's
+# count, as for the port's other kernels).
+GELU_LAUNCHES = _gelu_kernels.LAUNCHES
+
+
+def _fused_gelu(ctx, x, *operands):
+    """``0.5 v (1 + erf(v / sqrt 2))`` of ``v = x + b`` (inputs ``[x, b]``),
+    of ``v`` the LayerNorm of ``x [N, C, T]`` over its channels (``[x,
+    scale, shift]``) or of ``v = x`` (``[x]``), bundled at import.
+
+    On a CUDA tensor under ``fast``/``bf16``, one launch of the kernel
+    (``ops/cuda/gelu.py``) computes the chain's steps in their order and
+    precision and stores bf16 where every reader rounds its operand to bf16
+    (``bf16_out``), else float32, the chain's type; operands the kernel
+    does not take raise there. On the CPU and under ``fp32`` and ``mixed``,
+    which compute another function, it interprets ``body``, identical to
+    the unfused graph."""
+    x = _tensor(ctx, x)
+    if not (x.is_cuda and ctx.precision in ("fast", "bf16")):
+        return list(_run_subgraph(ctx, ctx.attr("body")))
+    vecs = [_tensor(ctx, v, x.device) for v in operands]
+    args = (float(ctx.attr("c")), bool(ctx.attr("divide")), bool(ctx.attr("half_first")),
+            torch.bfloat16 if int(ctx.attr("bf16_out")) else torch.float32)
+    if len(vecs) == 2:
+        return [_gelu_kernels.channel_ln_gelu(x, *vecs, float(ctx.attr("epsilon")), *args)]
+    return [_gelu_kernels.bias_gelu(x, vecs[0] if vecs else None, *args)]
+
+
+_PORT_REGISTRY["_FusedGelu"] = _registered(_fused_gelu, False)
 
 
 def _acc_product(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

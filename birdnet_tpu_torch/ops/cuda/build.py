@@ -212,6 +212,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.bn_frame_filterbank_logpower.restype = i
     lib.bn_frame_filterbank_max_hop.argtypes = [i, i, i]
     lib.bn_frame_filterbank_max_hop.restype = i
+    ll = ctypes.c_longlong
+    lib.bn_bias_gelu.argtypes = [p, p, p, ll, i, ll, i, f, i, i, i, p]
+    lib.bn_bias_gelu.restype = i
+    lib.bn_channel_ln_gelu.argtypes = [p, p, p, p, i, i, i, i, f, f, i, i, i, p]
+    lib.bn_channel_ln_gelu.restype = i
 
 
 def load_library() -> ctypes.CDLL:

@@ -293,6 +293,23 @@ exits non-zero:
              times in one CUDA graph, replays timed with CUDA events; one
              line per table (us per tile and per segment, share of the
              total); the logits prefix against the model's forward.
+22. gelu    — csrc/gelu.cu's two kernels at aves_embed_1h's shapes (a tile
+             of 128 segments of 80,000 samples at 16 kHz): bias_gelu on the
+             FFN's [128, 249, 4096] (bf16 and float32 stores) and the
+             positional conv's [128, 1024, 249] slice of 250 frames (bare,
+             float32), bit for bit against their plain versions;
+             channel_ln_gelu on [128, 512, T] for each encoder T (bf16
+             stores, float32 at the last), frames that differ at all at most
+             GELU_LN_FRAME_SHARE and no element off by more than
+             GELU_LN_REL of the largest magnitude; each timed against its
+             plain version beside its byte bound (2 B read, 2 or 4 B written
+             an element); then one hour of int16 through the full-width
+             AVES (HuBERT-large) model's embed_samples at fast: each
+             captured tile graph holds 24 bias, 7 channel_ln and 1 bare
+             launch, the counts are set to 0 before a second hour and read
+             after it (the kernels line's launches), and the embeddings
+             against the same model imported without the GELU bundling,
+             each row within the benchmark's emb_err of its largest entry.
 
 Before each driven path (slice, stream, int8, families, the batch
 context's capture, each server's run, the exported files, the CRNN, the
@@ -312,11 +329,17 @@ wrappers (B4 at the full-width geometry, B5, the B3 forward sum) and
 predict_batch(32) under mixed on the full-width files, so that this
 script beside another tree's package (``git archive`` into the
 git-ignored ``_ab/``) compares the two in one call, in turns.
+
+    python3 chip_smoke.py --gelu
+
+runs the device, build and gelu phases alone and prints their kernels
+line.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -352,11 +375,13 @@ from birdnet_tpu_torch.compiler.quantize import (
     synthetic_calibration_segments,
 )
 from birdnet_tpu_torch.compiler._melbank import mel_weight_matrix
-from birdnet_tpu_torch.models import birdnet_v24, birdnet_v30, meta, perch_v2
+from birdnet_tpu_torch.compiler import fuse_gelu
+from birdnet_tpu_torch.models import aves_hubert, birdnet_v24, birdnet_v30, meta, perch_v2
 from birdnet_tpu_torch.onnx import proto as P
 from birdnet_tpu_torch.parallel import make_mesh
 from birdnet_tpu_torch.ops.cuda import build
 from birdnet_tpu_torch.ops.cuda import frontend as fe
+from birdnet_tpu_torch.ops.cuda import gelu
 from birdnet_tpu_torch.ops.cuda import qconv as qc
 from birdnet_tpu_torch.ops.cuda import stage_prefix as spx
 from birdnet_tpu_torch.serve import ServeClient, make_server
@@ -374,8 +399,12 @@ SOURCES = {
     "stage_stack_forward": "birdnet_tpu_torch/csrc/stage_prefix.cu",
     "frame_filterbank_logpower": "birdnet_tpu_torch/csrc/frontend.cu",
     "qconv1x1_requant_forward": "birdnet_tpu_torch/csrc/qconv.cu",
+    "bias_gelu": "birdnet_tpu_torch/csrc/gelu.cu",
+    "channel_ln_gelu": "birdnet_tpu_torch/csrc/gelu.cu",
 }
-# The TPU kernels these replace (the wrappers that reach pl.pallas_call).
+# The TPU kernels these replace (the wrappers that reach pl.pallas_call);
+# None for the port's own kernels, whose chains the JAX package leaves to
+# XLA's fusion.
 REPLACES = {
     "stft_melspec": "birdnet_tpu/ops/pallas/frontend.py:463",
     "filterbank_logpower": "birdnet_tpu/ops/pallas/frontend.py:334",
@@ -383,6 +412,8 @@ REPLACES = {
     "stage_stack_forward": "birdnet_tpu/ops/pallas/stage123.py:255",
     "frame_filterbank_logpower": "birdnet_tpu/ops/pallas/frontend.py:194",
     "qconv1x1_requant_forward": "birdnet_tpu/ops/pallas/qconv.py:91",
+    "bias_gelu": None,
+    "channel_ln_gelu": None,
 }
 # B3 at batch 32: (C_in, C_out, N = H*W, activation), 1x1 convs of the int8
 # v2.4 graph; the first is the one the kernels line reports.
@@ -4572,6 +4603,169 @@ def phase_stage_profile(card: str) -> None:
     emit({"phase": "stage_profile_seconds", "card": card, "seconds": time.perf_counter() - t0})
 
 
+# The gelu phase: aves_embed_1h's tile (128 segments of 80,000 samples).
+# (form, x's shape, stores bf16, launches a tile); the positional conv's x is
+# a slice of 250 frames to 249, as the graph's Slice leaves it.
+GELU_CASES = [("bias", (128, 249, 4096), True, 24), ("bias", (128, 249, 4096), False, 0),
+              ("bare", (128, 1024, 250), False, 1)] + [
+    ("channel_ln", (128, 512, t), t != 249, 1)
+    for t in (15999, 7999, 3999, 1999, 999, 499, 249)]
+# channel_ln against its plain version: the statistics sum in another order
+# than ATen's reductions, so a bf16 rounding of a frame's mean or variance
+# may flip and move the frame by about one bf16 ulp of its largest values
+# (two after the roundings that follow): frames that differ at all at most
+# this share, no element off by more than this share of the largest
+# magnitude (tests/test_torch_fuse_gelu.py holds the same).
+GELU_LN_FRAME_SHARE, GELU_LN_REL = 1e-3, 2 ** -5
+# The chain's float32 operations an element (the kernels line's bound_by):
+# the bias Add or none, then / sqrt 2, erf, + 1 and two Muls; the channel
+# LayerNorm's sums, difference, scaling and affine before them.
+GELU_OPS = {"bias": 6, "bare": 5, "channel_ln": 13}
+AVES_HOUR = 3600 * 16_000
+
+
+def phase_gelu(card: str) -> dict:
+    """The gelu phase (see the module's docstring). Returns the kernels
+    line's summaries of bias_gelu and channel_ln_gelu, summed over an
+    AVES tile's launches, with the launches counted in the second hour."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=CARD).manual_seed(SEED)
+    c = float(np.float32(math.sqrt(2.0)))
+    summary = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                      "bound_by": "bytes", "library_ms": None, "library": None}
+               for name in ("bias_gelu", "channel_ln_gelu")}
+    for form, shape, bf16_out, per_tile in GELU_CASES:
+        x = torch.randn(shape, device=CARD, generator=g)
+        if form == "channel_ln":
+            x = x + 0.5 * torch.randn(shape[0], 1, shape[2], device=CARD, generator=g)
+        x = x.to(torch.bfloat16)
+        if form == "bare":
+            x = x[..., :-1]
+        out = torch.bfloat16 if bf16_out else torch.float32
+        if form == "channel_ln":
+            name = "channel_ln_gelu"
+            vecs = (1.0 + 0.1 * torch.randn(shape[1], device=CARD, generator=g),
+                    0.1 * torch.randn(shape[1], device=CARD, generator=g), 1e-5)
+            args = (*vecs, c, True, False, out)
+            kernel = lambda: gelu.channel_ln_gelu(x, *args)  # noqa: E731
+            plain = lambda: gelu.channel_ln_gelu_plain(x, *args)  # noqa: E731
+        else:
+            name = "bias_gelu"
+            bias = (0.02 * torch.randn(shape[-1], device=CARD, generator=g)
+                    if form == "bias" else None)
+            args = (bias, c, True, False, out)
+            kernel = lambda: gelu.bias_gelu(x, *args)  # noqa: E731
+            plain = lambda: gelu.bias_gelu_plain(x, *args)  # noqa: E731
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        line = {"phase": "gelu", "card": card, "form": form, "shape": list(x.shape),
+                "out": str(out).split(".")[1], "max_abs_err": err}
+        if form == "channel_ln":
+            share = float((diff.amax(dim=1) > 0).float().mean())
+            line.update(frames_off_share=share, ok=bool(
+                share <= GELU_LN_FRAME_SHARE
+                and err <= GELU_LN_REL * float(want.float().abs().max())))
+        else:
+            line["ok"] = bool(torch.equal(got, want))
+        del got, want, diff
+        ms, plain_ms = kernel_vs_plain_ms(kernel, plain)
+        n = x.numel()
+        moved = n * (x.element_size() + out.itemsize)
+        line.update(ms=ms, plain_ms=plain_ms, **bound(moved, {"fp32": GELU_OPS[form] * n}))
+        line["share_of_bound"] = line["bound_ms"] / ms
+        emit(line)
+        if not line["ok"]:
+            raise AssertionError(f"gelu: {line}")
+        total = summary[name]
+        total["max_abs_err"] = max(total["max_abs_err"], err)
+        for key in ("ms", "plain_ms", "bound_ms"):
+            total[key] += per_tile * line[key]
+        del x
+        torch.cuda.empty_cache()
+    for total in summary.values():
+        total["share_of_bound"] = total["bound_ms"] / total["ms"]
+
+    rng = np.random.default_rng(SEED + 26)
+    pcm = (rng.normal(size=AVES_HOUR) * 3000).clip(-32768, 32767).astype(np.int16)
+    cfg = json.loads((REPO / "benchmark" / "configs" / "aves_hubert_large_fast.json")
+                     .read_text())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "aves_hubert_large.onnx")
+        aves_hubert.save(path, seed=SEED)
+
+        def classifier():
+            return (Classifier.builder().model_path(path)
+                    .labels([f"s{i}" for i in range(aves_hubert.NUM_SPECIES)])
+                    .precision("fast").build())
+
+        clf = classifier()
+        clf.embed_samples(pcm)
+        graphs = [sorted(key for launches, key in tally if launches is gelu.LAUNCHES)
+                  for program in clf._streaming_engine().programs.values()
+                  for tally in program.launches]
+        gelu.reset_launches()
+        emb, _ = clf.embed_samples(pcm)
+        torch.cuda.synchronize()
+        launches = dict(gelu.LAUNCHES)
+        del clf
+        torch.cuda.empty_cache()
+        real = fuse_gelu.fuse_gelu
+        fuse_gelu.fuse_gelu = lambda graph, tensors: (0, 0)
+        try:
+            unfused = classifier()
+        finally:
+            fuse_gelu.fuse_gelu = real
+        want, _ = unfused.embed_samples(pcm)
+        del unfused
+        torch.cuda.empty_cache()
+    got, want = np.asarray(emb, np.float64), np.asarray(want, np.float64)
+    rows = np.abs(got - want).max(axis=1) / np.abs(want).max(axis=1)
+    tiles = launches["bare"]
+    line = {"phase": "gelu_aves", "card": card, "segments": int(got.shape[0]),
+            "graph_launches": graphs, "launches": launches,
+            "emb_err_max": float(rows.max()), "emb_err_limit": cfg["row_limits"]["emb_err"],
+            "seconds": time.perf_counter() - t0}
+    line["ok"] = bool(
+        graphs and all(f == ["bare"] + ["bias"] * 24 + ["channel_ln"] * 7 for f in graphs)
+        and tiles > 0 and launches == {"bias": 24 * tiles, "bare": tiles, "channel_ln": 7 * tiles}
+        and got.shape == want.shape and line["emb_err_max"] <= line["emb_err_limit"])
+    emit(line)
+    if not line["ok"]:
+        raise AssertionError(f"gelu_aves: {line}")
+    summary["bias_gelu"]["launches"] = launches["bias"] + launches["bare"]
+    summary["channel_ln_gelu"]["launches"] = launches["channel_ln"]
+    return summary
+
+
+def kernels_line(summary: dict, launches: dict) -> dict:
+    """The kernels' summary line: each kernel of ``summary`` with its
+    launches on the driven paths (``launches``)."""
+    kernels = []
+    for kname, s in summary.items():
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} was not launched on any of its paths")
+        kernels.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
+                        "replaces": REPLACES[kname], "launches": launches[kname],
+                        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                        "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+                        "library": s["library"]})
+    return {"kernels": kernels}
+
+
+def main_gelu() -> int:
+    """``--gelu``: the device, build and gelu phases and their kernels line."""
+    name, smi = phase_device()
+    phase_build()
+    summary = phase_gelu(smi)
+    emit(kernels_line(summary, {k: s["launches"] for k, s in summary.items()}))
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main_ab() -> int:
     """``--ab``: B4 at the full-width geometry, B5 at int16 step 144000
     (and 72000), the B3 forward sum and predict_batch(32) under mixed, only
@@ -4595,6 +4789,8 @@ def main_ab() -> int:
 def main() -> int:
     if sys.argv[1:] == ["--ab"]:
         return main_ab()
+    if sys.argv[1:] == ["--gelu"]:
+        return main_gelu()
     name, smi = phase_device()
     phase_build()
     summary = phase_kernels(CARD)
@@ -4633,22 +4829,16 @@ def main() -> int:
         phase_tools(smi, paths["conv"])
     phase_hunt(smi)
     phase_stage_profile(smi)
+    gelu_summary = phase_gelu(smi)
     # Each kernel's launches summed over its paths; B5's from its kernel
     # phase.
     launches = {k: sum(run[k] for run in path_launches) for k in path_launches[0]}
     launches["frame_filterbank_logpower"] = b5_launches
     launches["qconv1x1_requant_forward"] = launches["qconv1x1_requant"]
-    kernels = []
-    for kname, s in summary.items():
-        if launches[kname] <= 0:
-            raise AssertionError(f"{kname} was not launched on any of its paths")
-        kernels.append({"name": kname, "route": "cuda", "source": SOURCES[kname],
-                        "replaces": REPLACES[kname], "launches": launches[kname],
-                        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
-                        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                        "bound_by": s["bound_by"], "library_ms": s["library_ms"],
-                        "library": s["library"]})
-    emit({"kernels": kernels})
+    for kname, s in gelu_summary.items():
+        summary[kname] = s
+        launches[kname] = s["launches"]
+    emit(kernels_line(summary, launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

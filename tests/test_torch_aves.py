@@ -317,6 +317,8 @@ def test_trace_writes_the_import_counters(tiny, tmp_path):
     spans = json.loads((tmp_path / "prof" / "spans.json").read_text())
     assert spans["compiler"]["birdnet.compiler.attention_fused"] >= 2
     assert "birdnet.compiler.attention_kept" in spans["compiler"]
+    assert spans["compiler"]["birdnet.compiler.gelu_fused"] >= 10
+    assert "birdnet.compiler.gelu_kept" in spans["compiler"]
 
 
 def test_cli_takes_model_type_aves(tiny, tmp_path, capsys):
